@@ -7,8 +7,8 @@ stack and emits one JSON line per (p, mode):
   python benchmarks/bicycle_ler.py --ps 0.01,0.02,0.03 --count 20000
   python benchmarks/bicycle_ler.py --relay 12 --osd 20   # quality stack
 
-Modes compose like the flagship harness: flooding min-sum on the fused
-lifted Pallas kernel, optional on-device ensemble relay repair, optional
+Modes compose like the flagship harness: flooding min-sum on the lifted
+graph, optional on-device ensemble relay repair, optional
 host BP+OSD mop-up (the standard decoder for BB codes in the literature).
 There is no reference corpus for these codes (the reference implements only
 the Hagiwara–Imai family) — numbers stand on their own and document what the
@@ -33,30 +33,23 @@ def main() -> int:
     ap.add_argument("--count", type=int, default=20_000)
     ap.add_argument("--iters", type=int, default=100)
     ap.add_argument("--batch", type=int, default=2048)
-    ap.add_argument("--tile", type=int, default=256)
     ap.add_argument("--steps-per-call", type=int, default=8)
     ap.add_argument("--seed", type=int, default=20260820)
     ap.add_argument("--osd", type=int, default=-1, metavar="LAM",
                     help="-1 off; >=0 OSD with lam-column combination sweep")
     ap.add_argument("--relay", type=int, default=0, metavar="RETRIES")
-    ap.add_argument("--kernel", default="auto", choices=["auto", "pallas", "xla"])
     args = ap.parse_args()
 
     setup_jax_cache()
-    import jax
     import numpy as np
 
-    from qec_ldpc_tpu.codes import known_bicycle_code
-    from qec_ldpc_tpu.decoder import BPConfig
-    from qec_ldpc_tpu.parallel.montecarlo import run_monte_carlo, run_monte_carlo_osd
+    from qec_ldpc.codes import known_bicycle_code
+    from qec_ldpc.decoder import BPConfig
+    from qec_ldpc.parallel.montecarlo import run_monte_carlo, run_monte_carlo_osd
 
     code = known_bicycle_code(args.code)
     graphs = code.build_graphs()
-    kernel = args.kernel
-    if kernel == "auto":
-        kernel = "pallas" if jax.default_backend() == "tpu" else "xla"
-    cfg = BPConfig(max_iters=args.iters, algorithm="min-sum", kernel=kernel,
-                   kernel_tile_batch=args.tile)
+    cfg = BPConfig(max_iters=args.iters, algorithm="min-sum")
     mode = "min-sum"
     if args.relay:
         mode += f"+relay{args.relay}"

@@ -50,7 +50,7 @@ rare ones (logical errors are 0 in every dated file).
 One dynamic-weight compiled program per (code, MAX) — 4 programs for all
 159 sweep points.
 
-Usage (on the TPU chip):
+Usage (on the GPU):
     python -m benchmarks.golden_dated [out.jsonl] [samples_per_point]
 """
 
@@ -81,7 +81,7 @@ def _z(k_ref, n_ref, k_ours, n_ours):
 def read_archive_points():
     """[(code_params, weight, max_iters, p, ref_record)] — the archive mixes
     two codes, distinguished by the record's own Code string."""
-    from qec_ldpc_tpu.harness import parse_code_params, parse_reference_text
+    from qec_ldpc.harness import parse_code_params, parse_reference_text
 
     points = []
     for path in sorted(
@@ -98,7 +98,7 @@ def read_archive_points():
 def read_dated_points(dirname: str):
     """[(weight, ref_record)] from a dated directory, weight taken from the
     record's own ``Error Weight`` line (filenames are just run indices)."""
-    from qec_ldpc_tpu.harness import parse_reference_text
+    from qec_ldpc.harness import parse_reference_text
 
     points = []
     for path in sorted(glob.glob(os.path.join(RESULTS, dirname, "*.txt"))):
@@ -121,18 +121,17 @@ def main(out_path: str = "benchmarks/data/golden_dated_r5.jsonl",
 
     import jax.numpy as jnp
 
-    from qec_ldpc_tpu.codes import construct_code
-    from qec_ldpc_tpu.decoder import BPConfig, CodeGraphs
-    from qec_ldpc_tpu.decoder.decode import decode_batch, kernel_consts
-    from qec_ldpc_tpu.sampling import (
+    from qec_ldpc.codes import construct_code
+    from qec_ldpc.decoder import BPConfig, CodeGraphs
+    from qec_ldpc.decoder.decode import decode_batch
+    from qec_ldpc.sampling import (
         NUM_COUNTERS,
         classify_batch,
         sample_weight_w_errors_dynamic,
     )
-    from qec_ldpc_tpu.sampling.classify import make_rank_basis_test
+    from qec_ldpc.sampling.classify import make_rank_basis_test
 
     count = int(samples_per_point)
-    kernel = "pallas" if jax.default_backend() == "tpu" else "xla"
     batch = 2048
     num_chunks = -(-count // batch)
 
@@ -150,7 +149,7 @@ def main(out_path: str = "benchmarks/data/golden_dated_r5.jsonl",
     @partial(jax.jit,
              static_argnames=("graphs", "w_cap", "cfg", "batch",
                               "num_chunks"))
-    def sweep_point(graphs, lt, consts, key, weight, p, w_cap, cfg, batch,
+    def sweep_point(graphs, lt, key, weight, p, w_cap, cfg, batch,
                     num_chunks):
         def body(counters, c):
             ck = jax.random.fold_in(key, c)
@@ -159,7 +158,7 @@ def main(out_path: str = "benchmarks/data/golden_dated_r5.jsonl",
             xe_i, ze_i = xe.astype(jnp.int32), ze.astype(jnp.int32)
             sx = graphs.x.syndrome(xe_i)
             sz = graphs.z.syndrome(ze_i)
-            res = decode_batch(graphs, sx, sz, p, cfg, consts=consts)
+            res = decode_batch(graphs, sx, sz, p, cfg)
             cnt = classify_batch(lt, xe_i, ze_i,
                                  res.decisions_x.astype(jnp.int32),
                                  res.decisions_z.astype(jnp.int32),
@@ -172,11 +171,10 @@ def main(out_path: str = "benchmarks/data/golden_dated_r5.jsonl",
         return counters
 
     def run_point(graphs, ltest, seed, w, max_iters, p, w_cap):
-        cfg = BPConfig(max_iters=max_iters, kernel=kernel)
-        consts = kernel_consts(graphs, cfg)
+        cfg = BPConfig(max_iters=max_iters)
         t0 = time.perf_counter()
         counters = np.asarray(sweep_point(
-            graphs, ltest, consts, jax.random.PRNGKey(seed), jnp.int32(w),
+            graphs, ltest, jax.random.PRNGKey(seed), jnp.int32(w),
             jnp.float32(p), w_cap, cfg, batch, num_chunks))
         return counters, time.perf_counter() - t0
 
@@ -273,7 +271,7 @@ def main(out_path: str = "benchmarks/data/golden_dated_r5.jsonl",
     with open(out_path, "w") as f:
         meta = {
             "artifact": "golden_dated",
-            "decoder": "sum-product", "kernel": kernel,
+            "decoder": "sum-product",
             "samples_per_point": count,
             "device_kind": jax.devices()[0].device_kind,
             "points": len(records),

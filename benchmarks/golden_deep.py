@@ -15,7 +15,7 @@ Prior provenance (round-2 finding, golden_sweep.py note): the reference's
 p_0.01-labeled [[610]] runs were generated with prior p=0.02, so the
 apples-to-apples comparison decodes at 0.02; records carry BOTH priors.
 
-Usage (on the TPU chip):
+Usage (on the GPU):
     python -m benchmarks.golden_deep [out.jsonl] [samples_per_point]
 """
 
@@ -136,7 +136,7 @@ def read_deep_points():
     """[(weight, ref_record)] for the VERDICT-named weights from the
     p=0.01-labeled corpus files; W=15 uses the 100 000-sample headline file
     at the results root (the subdir file holds only 10 000 samples)."""
-    from qec_ldpc_tpu.harness import parse_reference_text
+    from qec_ldpc.harness import parse_reference_text
 
     from benchmarks.golden_sweep import read_golden_points
 
@@ -158,31 +158,29 @@ def main(out_path: str = "benchmarks/data/golden_deep_r4.jsonl",
 
     import jax.numpy as jnp
 
-    from qec_ldpc_tpu.codes import construct_code
-    from qec_ldpc_tpu.decoder import BPConfig, CodeGraphs
-    from qec_ldpc_tpu.decoder.decode import decode_batch, kernel_consts
-    from qec_ldpc_tpu.sampling import (
+    from qec_ldpc.codes import construct_code
+    from qec_ldpc.decoder import BPConfig, CodeGraphs
+    from qec_ldpc.decoder.decode import decode_batch
+    from qec_ldpc.sampling import (
         NUM_COUNTERS,
         classify_batch,
         sample_weight_w_errors_dynamic,
     )
-    from qec_ldpc_tpu.sampling.classify import make_rank_basis_test
+    from qec_ldpc.sampling.classify import make_rank_basis_test
 
     count = int(samples_per_point)
     code = construct_code(4, 5, 10, 61, 9, 49)
     graphs = CodeGraphs.build(code)
     ltest = make_rank_basis_test(code)
-    kernel = "pallas" if jax.default_backend() == "tpu" else "xla"
     W_MAX = 64
     batch = 2048
     num_chunks = -(-count // batch)
-    cfg = BPConfig(max_iters=MAX_ITERS, kernel=kernel)
-    consts = kernel_consts(graphs, cfg)
+    cfg = BPConfig(max_iters=MAX_ITERS)
 
     # one compiled program for the whole artifact: weight and prior are
     # runtime values (dynamic sampler), counters accumulate int64 on device
     @partial(jax.jit, static_argnames=("cfg", "batch", "num_chunks"))
-    def deep_point(lt, consts, key, weight, p, cfg, batch, num_chunks):
+    def deep_point(lt, key, weight, p, cfg, batch, num_chunks):
         def body(counters, c):
             ck = jax.random.fold_in(key, c)
             xe, ze = sample_weight_w_errors_dynamic(
@@ -190,7 +188,7 @@ def main(out_path: str = "benchmarks/data/golden_deep_r4.jsonl",
             xe_i, ze_i = xe.astype(jnp.int32), ze.astype(jnp.int32)
             sx = graphs.x.syndrome(xe_i)
             sz = graphs.z.syndrome(ze_i)
-            res = decode_batch(graphs, sx, sz, p, cfg, consts=consts)
+            res = decode_batch(graphs, sx, sz, p, cfg)
             cnt = classify_batch(lt, xe_i, ze_i,
                                  res.decisions_x.astype(jnp.int32),
                                  res.decisions_z.astype(jnp.int32),
@@ -222,7 +220,7 @@ def main(out_path: str = "benchmarks/data/golden_deep_r4.jsonl",
         for prior, tag in ((0.02, ""), (0.01, "_prior001")):
             t0 = time.perf_counter()
             counters = np.asarray(deep_point(
-                ltest, consts, jax.random.PRNGKey(7000 + w), jnp.int32(w),
+                ltest, jax.random.PRNGKey(7000 + w), jnp.int32(w),
                 jnp.float32(prior), cfg, batch, num_chunks))
             dt = time.perf_counter() - t0
             n_ours = int(counters[0])
@@ -264,7 +262,7 @@ def main(out_path: str = "benchmarks/data/golden_deep_r4.jsonl",
     with open(out_path, "w") as f:
         meta = {
             "artifact": "golden_deep", "code": str(code),
-            "decoder": "sum-product", "kernel": kernel,
+            "decoder": "sum-product",
             "samples_per_point": count,
             "device_kind": jax.devices()[0].device_kind,
             "points": len(records),

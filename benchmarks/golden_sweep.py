@@ -9,7 +9,7 @@ each golden file's.  Emits one JSONL record per sweep point with both sides'
 fractions and the binomial z-score of the difference; the committed artifact
 is pinned by tests/test_golden_parity.py.
 
-Usage (on the TPU chip):
+Usage (on the GPU):
     python -m benchmarks.golden_sweep [out.jsonl]
 
 Provenance note on the p=0.02 points: the reference ran only 1 000 samples
@@ -34,7 +34,7 @@ NAME_RE = re.compile(r"_W_(\d+)_MAX_(\d+)_p_([0-9.]+)\.txt$")
 
 def read_golden_points():
     """[(weight, max_iters, p, record_dict)] for every [[610]] corpus file."""
-    from qec_ldpc_tpu.harness import parse_reference_text
+    from qec_ldpc.harness import parse_reference_text
 
     points = []
     # glob.escape: the corpus directory name is [4,5,10,61,9,49] — a literal
@@ -54,34 +54,33 @@ def read_golden_points():
 def main(out_path: str = "benchmarks/data/golden_sweep_r3.jsonl") -> int:
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    from qec_ldpc.harness.cli import enable_persistent_compile_cache
+
+    enable_persistent_compile_cache()
 
     import jax.numpy as jnp
     from functools import partial
 
-    from qec_ldpc_tpu.codes import construct_code
-    from qec_ldpc_tpu.decoder import BPConfig, CodeGraphs
-    from qec_ldpc_tpu.decoder.decode import decode_batch, kernel_consts
-    from qec_ldpc_tpu.sampling import (
+    from qec_ldpc.codes import construct_code
+    from qec_ldpc.decoder import BPConfig, CodeGraphs
+    from qec_ldpc.decoder.decode import decode_batch
+    from qec_ldpc.sampling import (
         NUM_COUNTERS,
         classify_batch,
         sample_weight_w_errors_dynamic,
     )
-    from qec_ldpc_tpu.sampling.classify import make_rank_basis_test
+    from qec_ldpc.sampling.classify import make_rank_basis_test
 
     code = construct_code(4, 5, 10, 61, 9, 49)
     graphs = CodeGraphs.build(code)
     ltest = make_rank_basis_test(code)
-    kernel = "pallas" if jax.default_backend() == "tpu" else "xla"
     W_MAX = 64  # corpus tops out at W=58
 
     # ONE compiled program per distinct chunk count for the WHOLE sweep:
     # weight is a runtime value via the dynamic sampler, p is traced, so the
-    # 120 points do not cost 120 slow remote TPU compilations.
+    # 120 points do not cost 120 compilations.
     @partial(jax.jit, static_argnames=("cfg", "batch", "num_chunks"))
-    def sweep_point(lt, consts, key, weight, p, cfg, batch, num_chunks):
+    def sweep_point(lt, key, weight, p, cfg, batch, num_chunks):
         def body(counters, c):
             ck = jax.random.fold_in(key, c)
             xe, ze = sample_weight_w_errors_dynamic(
@@ -89,7 +88,7 @@ def main(out_path: str = "benchmarks/data/golden_sweep_r3.jsonl") -> int:
             xe_i, ze_i = xe.astype(jnp.int32), ze.astype(jnp.int32)
             sx = graphs.x.syndrome(xe_i)
             sz = graphs.z.syndrome(ze_i)
-            res = decode_batch(graphs, sx, sz, p, cfg, consts=consts)
+            res = decode_batch(graphs, sx, sz, p, cfg)
             cnt = classify_batch(lt, xe_i, ze_i,
                                  res.decisions_x.astype(jnp.int32),
                                  res.decisions_z.astype(jnp.int32),
@@ -109,12 +108,11 @@ def main(out_path: str = "benchmarks/data/golden_sweep_r3.jsonl") -> int:
         ref_corrected = int(ref["Corrected"])
         # one device dispatch per point: count rounded up to whole chunks
         batch = 2048
-        cfg = BPConfig(max_iters=max_iters, kernel=kernel)
-        consts = kernel_consts(graphs, cfg)
+        cfg = BPConfig(max_iters=max_iters)
         num_chunks = -(-ref_tested // batch)
         t0 = time.perf_counter()
         counters = np.asarray(sweep_point(
-            ltest, consts, jax.random.PRNGKey(1000 + w), jnp.int32(w),
+            ltest, jax.random.PRNGKey(1000 + w), jnp.int32(w),
             jnp.float32(p), cfg, batch, num_chunks))
         dt = time.perf_counter() - t0
         tested = int(counters[0])
@@ -134,7 +132,7 @@ def main(out_path: str = "benchmarks/data/golden_sweep_r3.jsonl") -> int:
         corrected_extra = {}
         if p == 0.01:
             c2 = np.asarray(sweep_point(
-                ltest, consts, jax.random.PRNGKey(1000 + w), jnp.int32(w),
+                ltest, jax.random.PRNGKey(1000 + w), jnp.int32(w),
                 jnp.float32(0.02), cfg, batch, num_chunks))
             po2 = int(c2[3]) / int(c2[0])
             corrected_extra = {
@@ -165,7 +163,7 @@ def main(out_path: str = "benchmarks/data/golden_sweep_r3.jsonl") -> int:
     with open(out_path, "w") as f:
         meta = {
             "artifact": "golden_sweep", "code": str(code),
-            "decoder": "sum-product", "kernel": kernel,
+            "decoder": "sum-product",
             "device_kind": jax.devices()[0].device_kind,
             "points": len(records),
             "total_seconds": round(time.perf_counter() - t_all, 1),

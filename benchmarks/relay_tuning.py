@@ -12,7 +12,7 @@ corrected fraction after classification of the repaired batch.
 gamma_low/high are traced arguments of ``relay_decode_batch``, so the whole
 sweep reuses one compiled program per code.
 
-Usage (on the TPU chip):  python -m benchmarks.relay_tuning [out.jsonl]
+Usage (on the GPU):  python -m benchmarks.relay_tuning [out.jsonl]
 """
 
 from __future__ import annotations
@@ -38,29 +38,26 @@ def main(out_path: str = "benchmarks/data/relay_tuning_r4.jsonl") -> int:
     import jax
     import jax.numpy as jnp
 
-    from qec_ldpc_tpu.codes import construct_code, known_bicycle_code
-    from qec_ldpc_tpu.decoder import BPConfig
-    from qec_ldpc_tpu.decoder.decode import (
+    from qec_ldpc.codes import construct_code, known_bicycle_code
+    from qec_ldpc.decoder import BPConfig
+    from qec_ldpc.decoder.decode import (
         SYNDROME_FAIL_X,
         SYNDROME_FAIL_Z,
         CodeGraphs,
         decode_batch,
-        kernel_consts,
     )
-    from qec_ldpc_tpu.decoder.relay import relay_decode_batch
-    from qec_ldpc_tpu.sampling import (
+    from qec_ldpc.decoder.relay import relay_decode_batch
+    from qec_ldpc.sampling import (
         classify_batch,
         sample_depolarizing_errors,
         sample_weight_w_errors,
     )
-    from qec_ldpc_tpu.sampling.classify import make_rank_basis_test
+    from qec_ldpc.sampling.classify import make_rank_basis_test
 
-    kernel = "pallas" if jax.default_backend() == "tpu" else "xla"
     records = []
 
     def workload(name, graphs, sampler, p, batch=4096):
-        cfg = BPConfig(max_iters=100, algorithm="min-sum", kernel=kernel)
-        consts = kernel_consts(graphs, cfg)
+        cfg = BPConfig(max_iters=100, algorithm="min-sum")
         ltest = make_rank_basis_test(graphs.code)
         syn_bits = SYNDROME_FAIL_X | SYNDROME_FAIL_Z
 
@@ -70,12 +67,12 @@ def main(out_path: str = "benchmarks/data/relay_tuning_r4.jsonl") -> int:
             xe_i, ze_i = xe.astype(jnp.int32), ze.astype(jnp.int32)
             sx = graphs.x.syndrome(xe_i)
             sz = graphs.z.syndrome(ze_i)
-            base = decode_batch(graphs, sx, sz, p, cfg, consts=consts)
+            base = decode_batch(graphs, sx, sz, p, cfg)
             n_fail0 = jnp.sum((base.error_code & syn_bits) != 0)
             rk = jax.random.fold_in(key, jnp.uint32(0x52454C41))
             res, _, _ = relay_decode_batch(
                 graphs, sx, sz, p, rk, cfg, retries=RETRIES,
-                gamma_low=lo, gamma_high=hi, consts=consts)
+                gamma_low=lo, gamma_high=hi)
             n_fail1 = jnp.sum((res.error_code & syn_bits) != 0)
             cnt = classify_batch(ltest, xe_i, ze_i,
                                  res.decisions_x.astype(jnp.int32),

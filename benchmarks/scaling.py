@@ -5,15 +5,14 @@ counts using the production shard_map path (per-device fold_in keys, psum
 counter reduction — parallel/montecarlo.py).  Emits one JSON line per device
 count.
 
-On real multi-chip TPU hardware this measures true scaling (1 chip -> 1 host
--> N hosts; run one process per host with jax.distributed initialized, see
-docs/MULTIHOST.md).  On a single-chip or CPU environment, pass --cpu N to run
-on N virtual CPU devices: that validates the sharding path end-to-end and
-reports weak-scaling wall times, but CPU numbers are functional checks, not
-TPU performance.
+On a multi-GPU host this measures true scaling (1 card -> 1 host -> N
+hosts; run one process per host with jax.distributed initialized, see
+docs/MULTIHOST.md).  Pass --cpu N to run on N virtual CPU devices instead:
+that validates the sharding path end-to-end and reports weak-scaling wall
+times, but CPU numbers are functional checks, not device performance.
 
   python benchmarks/scaling.py --cpu 8 --devices 1,2,4,8 --iters 20
-  python benchmarks/scaling.py --devices 1   # real chip(s)
+  python benchmarks/scaling.py --devices 1,2,4   # real cards
 """
 
 from __future__ import annotations
@@ -42,7 +41,6 @@ def main() -> int:
     ap.add_argument("--weight", type=int, default=15)
     ap.add_argument("--p", type=float, default=0.01)
     ap.add_argument("--algorithm", default="sum-product")
-    ap.add_argument("--kernel", default="pallas")
     args = ap.parse_args()
 
     if args.cpu:
@@ -58,11 +56,11 @@ def main() -> int:
         jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
 
-    from qec_ldpc_tpu.codes import construct_code
-    from qec_ldpc_tpu.decoder import BPConfig
-    from qec_ldpc_tpu.decoder.decode import CodeGraphs, kernel_consts
-    from qec_ldpc_tpu.parallel import make_mesh
-    from qec_ldpc_tpu.parallel.montecarlo import make_sharded_chunk
+    from qec_ldpc.codes import construct_code
+    from qec_ldpc.decoder import BPConfig
+    from qec_ldpc.decoder.decode import CodeGraphs
+    from qec_ldpc.parallel import make_mesh
+    from qec_ldpc.parallel.montecarlo import make_sharded_chunk
 
     devices = jax.devices()
     if args.devices:
@@ -77,8 +75,7 @@ def main() -> int:
     graphs = CodeGraphs.build(code)
     i_minus_p = jnp.asarray(code.i_minus_p)
     cfg = BPConfig(max_iters=args.iters, check_every=args.iters + 1,
-                   algorithm=args.algorithm, kernel=args.kernel)
-    consts = kernel_consts(graphs, cfg)
+                   algorithm=args.algorithm)
     key = jax.random.PRNGKey(0)
     chunk_ids = jnp.arange(args.chunks, dtype=jnp.uint32)
 
@@ -91,7 +88,7 @@ def main() -> int:
 
         def dispatch():
             counters, _ = chunk_fn(i_minus_p, key, jnp.float32(args.p),
-                                   chunk_ids, consts)
+                                   chunk_ids)
             counters = np.asarray(counters)
             assert counters[0] == args.chunks * args.batch_per_device * d
 
@@ -109,7 +106,7 @@ def main() -> int:
             "speedup_vs_base": round(rate / base_rate, 2),
             "parallel_efficiency": round((rate / base_rate) / (d / base_d), 3),
             "unit": (f"weak scaling, {args.batch_per_device} samples/device, "
-                     f"fixed {args.iters} iters, {args.algorithm}:{args.kernel}"),
+                     f"fixed {args.iters} iters, {args.algorithm}"),
         })
     return 0
 

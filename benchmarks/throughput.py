@@ -1,12 +1,12 @@
-"""Single-chip decode-throughput matrix: algorithm x engine.
+"""Single-device decode-throughput matrix, one line per algorithm.
 
 Runs the full Monte-Carlo pipeline (sample -> syndromes -> batched X/Z BP ->
 classify -> counters) at a fixed iteration cap (convergence exit disabled and
-verified), like bench.py, for every requested (algorithm, kernel) pair.
-Emits one JSON line per configuration:
+verified), like bench.py, for every requested algorithm.
+Emits one JSON line per algorithm:
 
   python benchmarks/throughput.py                      # default matrix
-  python benchmarks/throughput.py --configs sum-product:pallas,min-sum:pallas \
+  python benchmarks/throughput.py --algorithms sum-product,min-sum \
       --iters 100 --batch 2048 --chunks 64
 
 Baseline: the reference CPU harness at W=15/MAX=100/p=0.01 decodes 887
@@ -29,9 +29,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--code", type=int, nargs=6, default=[4, 5, 10, 61, 9, 49],
                     metavar=("J", "K", "L", "P", "sigma", "tau"))
-    ap.add_argument("--configs", default=(
-        "sum-product:pallas,sum-product:xla,min-sum:pallas,min-sum:xla,"
-        "layered-min-sum:pallas,layered-min-sum:xla"))
+    ap.add_argument("--algorithms",
+                    default="sum-product,min-sum,layered-min-sum")
     ap.add_argument("--iters", type=int, default=100)
     ap.add_argument("--batch", type=int, default=2048)
     ap.add_argument("--chunks", type=int, default=64)
@@ -43,32 +42,31 @@ def main() -> int:
     import jax
     import jax.numpy as jnp
 
-    from qec_ldpc_tpu.codes import construct_code
-    from qec_ldpc_tpu.decoder import BPConfig
-    from qec_ldpc_tpu.decoder.decode import CodeGraphs, kernel_consts
-    from qec_ldpc_tpu.parallel.montecarlo import _chunk_body
-    from qec_ldpc_tpu.sampling import NUM_COUNTERS
+    from qec_ldpc.codes import construct_code
+    from qec_ldpc.decoder import BPConfig
+    from qec_ldpc.decoder.decode import CodeGraphs
+    from qec_ldpc.parallel.montecarlo import _chunk_body
+    from qec_ldpc.sampling import NUM_COUNTERS
 
     code = construct_code(*args.code)
     graphs = CodeGraphs.build(code)
     i_minus_p = jnp.asarray(code.i_minus_p)
     key = jax.random.PRNGKey(0)
 
-    for spec in args.configs.split(","):
-        algorithm, kernel = spec.strip().split(":")
+    for algorithm in args.algorithms.split(","):
+        algorithm = algorithm.strip()
         cfg = BPConfig(max_iters=args.iters, check_every=args.iters + 1,
                        layered_check_every=args.iters + 1,
-                       algorithm=algorithm, kernel=kernel)
-        consts = kernel_consts(graphs, cfg)
+                       algorithm=algorithm)
 
         @jax.jit
-        def run(key, consts, i_minus_p):
+        def run(key, i_minus_p):
             def body(carry, c):
                 counters, min_it = carry
                 ck = jax.random.fold_in(key, c)
                 cnt, iters = _chunk_body(graphs, i_minus_p, ck, args.weight,
                                          jnp.float32(args.p), cfg, args.batch,
-                                         "weight", consts)
+                                         "weight")
                 return (counters + cnt,
                         jnp.minimum(min_it, jnp.min(iters))), None
             init = (jnp.zeros(NUM_COUNTERS, jnp.int32), jnp.int32(2**31 - 1))
@@ -77,7 +75,7 @@ def main() -> int:
             return counters, min_it
 
         def dispatch():
-            counters, min_it = run(key, consts, i_minus_p)
+            counters, min_it = run(key, i_minus_p)
             counters = np.asarray(counters)
             # iters are lane-iteration sums: full work = iters per lane
             assert int(min_it) == args.iters * args.batch, (
@@ -88,12 +86,11 @@ def main() -> int:
         samples = args.chunks * args.batch
         rate = samples * args.iters / secs
         emit({
-            "metric": "bp_iteration_codewords_per_s_per_chip",
+            "metric": "bp_iteration_codewords_per_s_per_device",
             "algorithm": algorithm,
-            "kernel": kernel,
             "value": round(rate, 1),
             "samples_per_s": round(samples / secs, 1),
-            "unit": (f"BP-iter*codewords/s/chip (full pipeline, n={code.n} "
+            "unit": (f"BP-iter*codewords/s/device (full pipeline, n={code.n} "
                      f"code, fixed {args.iters} iters, "
                      f"{args.chunks}x{args.batch} samples/dispatch)"),
             "vs_baseline": round(rate / BASELINE_ITER_SAMPLES_PER_S, 2),

@@ -1,7 +1,6 @@
 """Bivariate bicycle codes end to end: construct, decode, repair, search.
 
-Runs on whatever backend JAX finds (TPU: fused lifted Pallas kernels;
-CPU: interpret/XLA paths).  Usage:
+Runs on whatever backend JAX finds (GPU or CPU).  Usage:
 
     python examples/bicycle_demo.py [published-label]   # default [[144,12,12]]
 """
@@ -12,19 +11,19 @@ import sys
 # runnable from anywhere without installing the package
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
-from qec_ldpc_tpu.harness.cli import enable_persistent_compile_cache
+from qec_ldpc.harness.cli import enable_persistent_compile_cache
 
-enable_persistent_compile_cache()  # remote TPU compiles are slow; cache them
+enable_persistent_compile_cache()
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from qec_ldpc_tpu.codes import find_bicycle_codes, known_bicycle_code
-from qec_ldpc_tpu.decoder import BPConfig, decode_batch, syndromes_from_errors
-from qec_ldpc_tpu.decoder.osd import CSSPostprocessor
-from qec_ldpc_tpu.sampling import classify_batch, sample_depolarizing_errors
-from qec_ldpc_tpu.sampling.classify import classify_batch_np
+from qec_ldpc.codes import find_bicycle_codes, known_bicycle_code
+from qec_ldpc.decoder import BPConfig, decode_batch, syndromes_from_errors
+from qec_ldpc.decoder.osd import CSSPostprocessor
+from qec_ldpc.sampling import classify_batch, sample_depolarizing_errors
+from qec_ldpc.sampling.classify import classify_batch_np
 
 
 def main() -> int:

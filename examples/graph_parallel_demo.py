@@ -3,8 +3,8 @@
 Runs the flagship [[610,61]] code's statistics pipeline over a
 (data x graph) mesh — the Tanner graphs themselves sharded block-column-wise
 across the graph axis — and shows the exact-decoder counters bit-matching a
-data-only mesh of the same data size.  Works anywhere: on a multi-chip TPU
-host the mesh spans real chips; on CPU it uses virtual devices (set below).
+data-only mesh of the same data size.  Works anywhere: on a multi-GPU host
+the mesh spans real cards; on CPU it uses virtual devices (set below).
 
     python examples/graph_parallel_demo.py
 """
@@ -15,9 +15,9 @@ import sys
 if "xla_force_host_platform_device_count" not in os.environ.get("XLA_FLAGS", ""):
     os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
                                + " --xla_force_host_platform_device_count=8").strip()
-# QEC_DEMO_PLATFORM=tpu to run on a real multi-chip host; defaults to the
-# 8-virtual-device CPU mesh (env preloaders may pin JAX_PLATFORMS, so the
-# in-process config update below is what actually decides)
+# QEC_DEMO_PLATFORM=cuda to run on a real multi-GPU host; defaults to the
+# 8-virtual-device CPU mesh (the in-process config update below is what
+# actually decides)
 platform = os.environ.get("QEC_DEMO_PLATFORM", "cpu")
 os.environ["JAX_PLATFORMS"] = platform
 
@@ -29,9 +29,9 @@ jax.config.update("jax_platforms", platform)
 
 import numpy as np
 
-from qec_ldpc_tpu.codes import construct_code
-from qec_ldpc_tpu.decoder import BPConfig, CodeGraphs
-from qec_ldpc_tpu.parallel import make_mesh, run_monte_carlo
+from qec_ldpc.codes import construct_code
+from qec_ldpc.decoder import BPConfig, CodeGraphs
+from qec_ldpc.parallel import make_mesh, run_monte_carlo
 
 code = construct_code(4, 5, 10, 61, 9, 49)
 graphs = CodeGraphs.build(code)

@@ -16,9 +16,9 @@ import sys
 # runnable from anywhere without installing the package
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
-from qec_ldpc_tpu.harness.cli import enable_persistent_compile_cache
+from qec_ldpc.harness.cli import enable_persistent_compile_cache
 
-enable_persistent_compile_cache()  # remote TPU compiles are slow; cache them
+enable_persistent_compile_cache()
 
 import sys
 
@@ -26,8 +26,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from qec_ldpc_tpu.codes import construct_code
-from qec_ldpc_tpu.decoder import (
+from qec_ldpc.codes import construct_code
+from qec_ldpc.decoder import (
     BPConfig,
     CodeGraphs,
     CSSPostprocessor,
@@ -35,7 +35,7 @@ from qec_ldpc_tpu.decoder import (
     relay_decode_batch,
     syndromes_from_errors,
 )
-from qec_ldpc_tpu.sampling import classify_batch_np, sample_weight_w_errors
+from qec_ldpc.sampling import classify_batch_np, sample_weight_w_errors
 
 
 def main() -> None:
@@ -47,8 +47,7 @@ def main() -> None:
     sx, sz = syndromes_from_errors(graphs, xe.astype(jnp.int32),
                                    ze.astype(jnp.int32))
 
-    kernel = "pallas" if jax.default_backend() == "tpu" else "xla"
-    cfg = BPConfig(max_iters=100, algorithm="layered-min-sum", kernel=kernel,
+    cfg = BPConfig(max_iters=100, algorithm="layered-min-sum",
                    return_soft=True)
 
     def report(name, dx, dz, ec):

@@ -1,8 +1,7 @@
 """Quickstart: construct the flagship code, decode a batch, read the outcome.
 
-Runs on whatever JAX backend is available (TPU: fused Pallas kernels via
-kernel="pallas"; CPU: pass kernel="xla" or let BPConfig default + interpret
-handle it).  See docs/DECODERS.md for algorithm selection.
+Runs on whatever JAX backend is available (GPU or CPU; the decode engines
+are plain XLA loops).  See docs/DECODERS.md for algorithm selection.
 
     python examples/quickstart.py
 """
@@ -13,22 +12,22 @@ import sys
 # runnable from anywhere without installing the package
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
-from qec_ldpc_tpu.harness.cli import enable_persistent_compile_cache
+from qec_ldpc.harness.cli import enable_persistent_compile_cache
 
-enable_persistent_compile_cache()  # remote TPU compiles are slow; cache them
+enable_persistent_compile_cache()
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from qec_ldpc_tpu.codes import construct_code
-from qec_ldpc_tpu.decoder import (
+from qec_ldpc.codes import construct_code
+from qec_ldpc.decoder import (
     BPConfig,
     CodeGraphs,
     decode_batch,
     syndromes_from_errors,
 )
-from qec_ldpc_tpu.sampling import classify_batch, sample_weight_w_errors
+from qec_ldpc.sampling import classify_batch, sample_weight_w_errors
 
 
 def main() -> None:
@@ -41,9 +40,7 @@ def main() -> None:
     sx, sz = syndromes_from_errors(graphs, xe.astype(jnp.int32),
                                    ze.astype(jnp.int32))
 
-    kernel = "pallas" if jax.default_backend() == "tpu" else "xla"
-    res = decode_batch(graphs, sx, sz, 0.01,
-                       BPConfig(max_iters=100, kernel=kernel))
+    res = decode_batch(graphs, sx, sz, 0.01, BPConfig(max_iters=100))
 
     counters = np.asarray(classify_batch(
         jnp.asarray(code.i_minus_p),

@@ -40,19 +40,19 @@ def main() -> int:
     import numpy as np
     import jax.numpy as jnp
 
-    from qec_ldpc_tpu.codes import construct_code
-    from qec_ldpc_tpu.decoder import BPConfig, CodeGraphs
-    from qec_ldpc_tpu.parallel import make_mesh, make_sharded_chunk
+    from qec_ldpc.codes import construct_code
+    from qec_ldpc.decoder import BPConfig, CodeGraphs
+    from qec_ldpc.parallel import make_mesh, make_sharded_chunk
 
     mode = sys.argv[4] if len(sys.argv) > 4 else "chunk"
     if mode == "graphchunk":
         # (data=4 x graph=2) mesh with every graph pair SPLIT ACROSS the two
         # processes, so the per-iteration halo all_gather rides the process
-        # boundary (the DCN path of a real multi-slice run).  Counters must
+        # boundary (the cross-host path of a real multi-host run).  Counters must
         # bit-match a single-process mesh of the same shape (min-sum).
-        from qec_ldpc_tpu.decoder import BPConfig, CodeGraphs
-        from qec_ldpc_tpu.parallel import make_graph_sharded_chunk, make_mesh
-        from qec_ldpc_tpu.sampling.classify import make_rank_basis_test
+        from qec_ldpc.decoder import BPConfig, CodeGraphs
+        from qec_ldpc.parallel import make_graph_sharded_chunk, make_mesh
+        from qec_ldpc.sampling.classify import make_rank_basis_test
 
         code = construct_code(3, 3, 6, 7, 2, 3)
         graphs = CodeGraphs.build(code)
@@ -79,12 +79,12 @@ def main() -> int:
         # addressable failed lanes; per-chunk failed counters all-reduce
         # across processes.  Single-key sample stream -> counters bit-match
         # the single-process (and single-device) run for min-sum.
-        from qec_ldpc_tpu.parallel.montecarlo import run_monte_carlo_osd
+        from qec_ldpc.parallel.montecarlo import run_monte_carlo_osd
 
         code = construct_code(3, 3, 6, 7, 2, 3)
         graphs = CodeGraphs.build(code)
         mesh = make_mesh(num_data=len(jax.devices()))
-        cfg = BPConfig(max_iters=15, algorithm="min-sum", kernel="xla")
+        cfg = BPConfig(max_iters=15, algorithm="min-sum")
         counters, _ = run_monte_carlo_osd(
             graphs, 4, 128, 0.02, cfg, seed=7, batch_size=64, lam=1,
             relay_retries=1, mesh=mesh)
@@ -101,14 +101,14 @@ def main() -> int:
         # to SIGKILL the workers in, and journals per dispatch group
         # (steps_per_call=1) so several groups exist to interrupt between.
         results_dir = sys.argv[5]
-        from qec_ldpc_tpu.harness.cli import run_sweep
-        from qec_ldpc_tpu.harness.config import RunConfig
+        from qec_ldpc.harness.cli import run_sweep
+        from qec_ldpc.harness.config import RunConfig
 
         kwargs = {}
         if mode == "cli_kill":
             import time as _time
 
-            from qec_ldpc_tpu.harness import journal as _journal
+            from qec_ldpc.harness import journal as _journal
 
             _orig_append = _journal.Journal.append
 
@@ -136,13 +136,13 @@ def main() -> int:
 
     code = construct_code(3, 3, 6, 7, 2, 3)
     graphs = CodeGraphs.build(code)
-    mesh = make_mesh(num_data=len(jax.devices()))  # global mesh, DCN-spanning
+    mesh = make_mesh(num_data=len(jax.devices()))  # global mesh, spanning processes
     chunk_fn = make_sharded_chunk(mesh, graphs, weight=2,
                                   cfg=BPConfig(max_iters=20),
                                   batch_per_device=16)
     counters, iters = chunk_fn(jnp.asarray(code.i_minus_p),
                                jax.random.PRNGKey(7), jnp.float32(0.02),
-                               jnp.arange(2, dtype=jnp.uint32), None)
+                               jnp.arange(2, dtype=jnp.uint32))
     print("COUNTERS", ",".join(map(str, np.asarray(counters).tolist())),
           flush=True)
     jax.distributed.shutdown()

@@ -1,6 +1,6 @@
 """Test oracle: an independent, straightforward NumPy implementation of the
 reference decode semantics (DecoderCPU.h), written from the equations — used
-to validate the vectorized TPU decoder.  Deliberately naive and loop-heavy.
+to validate the vectorized batched decoder.  Deliberately naive and loop-heavy.
 
 Semantics covered (ref file:line):
   - adjacency from dense PCM           (DecoderCPU.h:41-84)

@@ -5,8 +5,8 @@ BFS girth against the QC exponent-table 4-cycle condition."""
 import numpy as np
 import pytest
 
-import qec_ldpc_tpu as q
-from qec_ldpc_tpu.codes.analysis import girth_report, qc_has_4cycles, tanner_girth
+import qec_ldpc as q
+from qec_ldpc.codes.analysis import girth_report, qc_has_4cycles, tanner_girth
 
 
 def test_girth_known_small_graphs():
@@ -27,7 +27,7 @@ def test_girth_known_small_graphs():
 
 
 def test_qc_4cycle_condition_matches_bfs():
-    from qec_ldpc_tpu.codes.construction import expand_circulant
+    from qec_ldpc.codes.construction import expand_circulant
 
     rng = np.random.default_rng(0)
     found = {True: 0, False: 0}
@@ -43,7 +43,7 @@ def test_qc_4cycle_condition_matches_bfs():
 
 
 def test_find_code_params_girth_filter():
-    from qec_ldpc_tpu.codes.construction import find_code_params
+    from qec_ldpc.codes.construction import find_code_params
 
     pairs = find_code_params(4, 5, 10, 61, count=3, require_girth6=True)
     assert pairs, "girth-6 candidates must exist for the reference params"

@@ -2,24 +2,26 @@
 
 Covers: published (n, k) parameters, CSS orthogonality, lifted-graph routing
 parity vs CirculantGraph (bit-identical BP), graph-vs-dense syndrome parity,
-end-to-end decode + classification, the lifted fused Pallas kernel, and
-relay/OSD repair on a BB code.
+end-to-end decode + classification, lifted sum-product against the dense
+oracle, and relay/OSD repair on a BB code.
 """
+
+import types
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from qec_ldpc_tpu.codes.bicycle import KNOWN_CODES, bicycle_code, known_bicycle_code
-from qec_ldpc_tpu.decoder import BPConfig
-from qec_ldpc_tpu.decoder.decode import decode_batch, syndromes_from_errors
-from qec_ldpc_tpu.decoder.layout import CirculantGraph
-from qec_ldpc_tpu.decoder.lifted import LiftedGraph
-from qec_ldpc_tpu.decoder.min_sum import min_sum_run
-from qec_ldpc_tpu.decoder.sum_product import bp_run
-from qec_ldpc_tpu.sampling.classify import classify_batch
-from qec_ldpc_tpu.sampling.errors import sample_depolarizing_errors
+from qec_ldpc.codes.bicycle import KNOWN_CODES, bicycle_code, known_bicycle_code
+from qec_ldpc.decoder import BPConfig
+from qec_ldpc.decoder.decode import decode_batch, syndromes_from_errors
+from qec_ldpc.decoder.layout import CirculantGraph
+from qec_ldpc.decoder.lifted import LiftedGraph
+from qec_ldpc.decoder.min_sum import min_sum_run
+from qec_ldpc.decoder.sum_product import bp_run
+from qec_ldpc.sampling.classify import classify_batch
+from qec_ldpc.sampling.errors import sample_depolarizing_errors
 
 
 @pytest.fixture(scope="module")
@@ -148,56 +150,34 @@ def test_layered_rejects_lifted(gross_graphs):
         decode_batch(gross_graphs, sx, sz, 0.01, cfg)
 
 
-def test_lifted_pallas_kernel_bit_parity(gross_graphs):
-    """Fused lifted min-sum kernel (interpret mode on CPU) == XLA loop."""
-    from qec_ldpc_tpu.kernels.min_sum_pallas import min_sum_run_pallas
+def test_lifted_sum_product_matches_oracle(gross, gross_graphs):
+    """Lifted-graph sum-product decode == the dense NumPy oracle (messages
+    to float tolerance, decisions and error codes exactly)."""
+    from . import oracle
 
-    g = gross_graphs.x
-    rng = np.random.default_rng(5)
-    err = (rng.random((gross_graphs.code.n, 32)) < 0.03).astype(np.int32)
-    syn = g.syndrome(jnp.asarray(err))
-    v1, _ = min_sum_run(g, syn, jnp.float32(0.02), 20)
-    v2, _ = min_sum_run_pallas(g, syn, jnp.float32(0.02), 20,
-                               tile_batch=16, interpret=True)
-    assert bool(jnp.all(v1 == v2))
-
-
-def test_lifted_pallas_damped_parity(gross_graphs):
-    from qec_ldpc_tpu.kernels.min_sum_pallas import min_sum_run_pallas
-
-    g = gross_graphs.x
-    rng = np.random.default_rng(6)
-    err = (rng.random((gross_graphs.code.n, 16)) < 0.03).astype(np.int32)
-    syn = g.syndrome(jnp.asarray(err))
-    damp = jnp.asarray(
-        rng.uniform(0.2, 0.9, size=(g.num_edges, 16)).astype(np.float32))
-    v1, _ = min_sum_run(g, syn, jnp.float32(0.02), 15, damping=damp)
-    v2, _ = min_sum_run_pallas(g, syn, jnp.float32(0.02), 15, tile_batch=16,
-                               interpret=True, damping=damp)
-    np.testing.assert_allclose(np.asarray(v1), np.asarray(v2), rtol=1e-5,
-                               atol=1e-5)
-
-
-def test_bicycle_decode_pallas_equals_xla(gross, gross_graphs):
-    batch = 32
-    key = jax.random.PRNGKey(9)
-    xe, ze = sample_depolarizing_errors(key, gross.n, 0.01, batch)
-    xe, ze = xe.astype(jnp.int32), ze.astype(jnp.int32)
-    sx, sz = syndromes_from_errors(gross_graphs, xe, ze)
-    cfg_x = BPConfig(max_iters=40, algorithm="min-sum", kernel="xla")
-    cfg_p = BPConfig(max_iters=40, algorithm="min-sum", kernel="pallas",
-                     kernel_tile_batch=16)
-    rx = decode_batch(gross_graphs, sx, sz, 0.01, cfg_x)
-    rp = decode_batch(gross_graphs, sx, sz, 0.01, cfg_p)
-    assert np.array_equal(np.asarray(rx.decisions_x), np.asarray(rp.decisions_x))
-    assert np.array_equal(np.asarray(rx.decisions_z), np.asarray(rp.decisions_z))
-    assert np.array_equal(np.asarray(rx.error_code), np.asarray(rp.error_code))
+    rng = np.random.default_rng(8)
+    batch = 3
+    xe = (rng.random((gross.n, batch)) < 0.02).astype(np.int32)
+    ze = (rng.random((gross.n, batch)) < 0.02).astype(np.int32)
+    sx, sz = syndromes_from_errors(gross_graphs, jnp.asarray(xe),
+                                   jnp.asarray(ze))
+    res = decode_batch(gross_graphs, sx, sz, 0.02, BPConfig(max_iters=12))
+    sx, sz = np.asarray(sx), np.asarray(sz)
+    hx, hz = gross.pcm_x % 2, gross.pcm_z % 2
+    dense = types.SimpleNamespace(pcm_x=hx, pcm_z=hz,
+                                  syndrome_x=lambda e: hx @ e,
+                                  syndrome_z=lambda e: hz @ e)
+    for b in range(batch):
+        dx, dz, rc = oracle.decode(dense, sx[:, b], sz[:, b], 0.02, 12)
+        assert np.array_equal(np.asarray(res.decisions_x)[:, b], dx)
+        assert np.array_equal(np.asarray(res.decisions_z)[:, b], dz)
+        assert int(np.asarray(res.error_code)[b]) == rc
 
 
 # -- harness integration -------------------------------------------------------
 
 def test_cli_code_specs():
-    from qec_ldpc_tpu.harness.cli import load_code_and_graphs
+    from qec_ldpc.harness.cli import load_code_and_graphs
 
     code, graphs = load_code_and_graphs("bb:[[72,12,6]]")
     assert code.n == 72 and code.k_logical == 12
@@ -215,8 +195,8 @@ def test_cli_code_specs():
 
 def test_bicycle_osd_repairs_failures(gross, gross_graphs):
     """At heavier noise BP alone leaves syndrome failures; OSD clears them."""
-    from qec_ldpc_tpu.decoder.osd import CSSPostprocessor
-    from qec_ldpc_tpu.sampling.classify import classify_batch_np
+    from qec_ldpc.decoder.osd import CSSPostprocessor
+    from qec_ldpc.sampling.classify import classify_batch_np
 
     batch = 128
     key = jax.random.PRNGKey(11)
@@ -239,7 +219,7 @@ def test_bicycle_osd_repairs_failures(gross, gross_graphs):
 
 
 def test_bicycle_relay_runs(gross, gross_graphs):
-    from qec_ldpc_tpu.decoder.relay import relay_decode_batch
+    from qec_ldpc.decoder.relay import relay_decode_batch
 
     batch = 64
     key = jax.random.PRNGKey(13)
@@ -262,8 +242,8 @@ def test_bicycle_relay_runs(gross, gross_graphs):
 # -- code search ----------------------------------------------------------------
 
 def test_lifted_4cycle_detector_matches_bfs_girth(gross_graphs):
-    from qec_ldpc_tpu.codes.analysis import tanner_girth
-    from qec_ldpc_tpu.codes.bicycle import bicycle_code, lifted_has_4cycles
+    from qec_ldpc.codes.analysis import tanner_girth
+    from qec_ldpc.codes.bicycle import bicycle_code, lifted_has_4cycles
 
     assert not lifted_has_4cycles(gross_graphs.z)
     assert tanner_girth(gross_graphs.z.dense_pcm(), cap=6) >= 6
@@ -274,7 +254,7 @@ def test_lifted_4cycle_detector_matches_bfs_girth(gross_graphs):
 
 def test_find_bicycle_codes_recovers_published():
     """The BB(6,6) ansatz scan at min_k=12 finds the published [[72,12,6]]."""
-    from qec_ldpc_tpu.codes.bicycle import find_bicycle_codes
+    from qec_ldpc.codes.bicycle import find_bicycle_codes
 
     pub = known_bicycle_code("[[72,12,6]]")
     hits = find_bicycle_codes(6, 6, count=200, min_k=12)
@@ -293,42 +273,3 @@ def test_polynomial_spec_typos_raise():
         bicycle_code(12, 6, "x3 + y + y2z", "y3 + x + x2")
     with pytest.raises(ValueError, match="bad monomial"):
         bicycle_code(12, 6, "x3 + y +", "y3 + x + x2")
-
-
-def test_kernel_consts_none_for_lifted(gross_graphs):
-    """kernel_consts must not touch CirculantGraph-only roll operands on
-    lifted graphs (sum-product+pallas+mxu falls back to the XLA loop)."""
-    from qec_ldpc_tpu.decoder.decode import kernel_consts
-
-    cfg = BPConfig(algorithm="sum-product", kernel="pallas",
-                   kernel_roll_impl="mxu")
-    assert kernel_consts(gross_graphs, cfg) is None
-
-
-def test_lifted_sum_product_kernel_bit_parity(gross_graphs):
-    """Fused lifted SUM-PRODUCT kernel (interpret mode) == XLA loop."""
-    from qec_ldpc_tpu.kernels.bp_pallas import bp_run_pallas
-
-    g = gross_graphs.x
-    rng = np.random.default_rng(8)
-    err = (rng.random((gross_graphs.code.n, 32)) < 0.03).astype(np.int32)
-    syn = g.syndrome(jnp.asarray(err))
-    v1, _ = bp_run(g, syn, jnp.float32(0.02), 20)
-    v2, _ = bp_run_pallas(g, syn, jnp.float32(0.02), 20,
-                          tile_batch=16, interpret=True)
-    assert bool(jnp.all(v1 == v2))
-
-
-def test_bicycle_sum_product_decode_pallas_equals_xla(gross, gross_graphs):
-    batch = 32
-    key = jax.random.PRNGKey(17)
-    xe, ze = sample_depolarizing_errors(key, gross.n, 0.01, batch)
-    xe, ze = xe.astype(jnp.int32), ze.astype(jnp.int32)
-    sx, sz = syndromes_from_errors(gross_graphs, xe, ze)
-    cfg_x = BPConfig(max_iters=40, kernel="xla")
-    cfg_p = BPConfig(max_iters=40, kernel="pallas", kernel_tile_batch=16)
-    rx = decode_batch(gross_graphs, sx, sz, 0.01, cfg_x)
-    rp = decode_batch(gross_graphs, sx, sz, 0.01, cfg_p)
-    assert np.array_equal(np.asarray(rx.decisions_x), np.asarray(rp.decisions_x))
-    assert np.array_equal(np.asarray(rx.decisions_z), np.asarray(rp.decisions_z))
-    assert np.array_equal(np.asarray(rx.error_code), np.asarray(rp.error_code))

@@ -12,21 +12,18 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from qec_ldpc_tpu.codes import construct_code, known_bicycle_code, toric_code
-from qec_ldpc_tpu.codes.loader import load_code_file
-from qec_ldpc_tpu.decoder import BPConfig, CodeGraphs, decode_batch
-from qec_ldpc_tpu.decoder.decode import syndromes_from_errors
-from qec_ldpc_tpu.sampling import sample_weight_w_errors
-from qec_ldpc_tpu.sampling.classify import (
+from qec_ldpc.codes import construct_code, known_bicycle_code, toric_code
+from qec_ldpc.codes.loader import load_code_file
+from qec_ldpc.decoder import BPConfig, CodeGraphs, decode_batch
+from qec_ldpc.decoder.decode import syndromes_from_errors
+from qec_ldpc.sampling import sample_weight_w_errors
+from qec_ldpc.sampling.classify import (
     classify_batch,
     classify_batch_np,
     logical_error_mask,
     logical_error_mask_basis,
     make_rank_basis_test,
 )
-
-REF_SMALL = "/root/reference/J_3_K_3_L_6_P_7_s_2_t_3.txt"
-
 
 def _random_residuals(key, two_n, batch):
     # mix of sparse (plausible residuals) and dense random vectors
@@ -54,10 +51,10 @@ def test_mask_bitequal_vs_dense(make_code):
     assert test.basis_x.shape[1] == code.n
 
 
-def test_mask_bitequal_vs_file_shipped_matrix():
+def test_mask_bitequal_vs_file_shipped_matrix(small_code_file):
     """The loader code carries the FILE-shipped iMinusP; the basis test is
     built from the PCMs' RREF — same kernel, so classification agrees."""
-    code = load_code_file(REF_SMALL)
+    code = load_code_file(small_code_file)
     test = make_rank_basis_test(code)
     residual = _random_residuals(jax.random.PRNGKey(7), 2 * code.n, 128)
     dense = np.asarray(logical_error_mask(jnp.asarray(code.i_minus_p), residual))
@@ -100,7 +97,7 @@ def test_classify_batch_counters_bitequal_end_to_end():
 def test_large_p_code_classifies_without_dense_matrix():
     """A P=521 code's dense iMinusP would be (2n)^2 = 10420^2 ~ 108 MB int8
     (and O(n^2) to build); the rank-basis test needs only rank x n."""
-    from qec_ldpc_tpu.codes.construction import find_code_params
+    from qec_ldpc.codes.construction import find_code_params
 
     pairs = find_code_params(4, 5, 10, 521, count=1)
     assert pairs, "no (sigma, tau) found for P=521"
@@ -121,7 +118,7 @@ def test_large_p_code_classifies_without_dense_matrix():
 
 
 def test_invalid_logical_test_rejected_for_all_families():
-    from qec_ldpc_tpu.codes import known_bicycle_code
+    from qec_ldpc.codes import known_bicycle_code
 
     for code in (construct_code(3, 3, 6, 7, 2, 3),
                  known_bicycle_code("[[72,12,6]]")):

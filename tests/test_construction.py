@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from qec_ldpc_tpu.codes import (
+from qec_ldpc.codes import (
     construct_code,
     expand_circulant,
     exponents_from_pcm,
@@ -84,7 +84,7 @@ def test_annihilator_kernel_is_rowspace(small_code, rng):
 def test_built_i_minus_p_classifies_like_file(small_code, rng):
     """The shipped iMinusP and the GF(2)-constructed one must induce identical
     logical/harmless classification (same kernel), though not bit-equal."""
-    from qec_ldpc_tpu.codes import build_i_minus_p
+    from qec_ldpc.codes import build_i_minus_p
 
     built = build_i_minus_p(small_code.pcm_x % 2, small_code.pcm_z % 2)
     file_m = small_code.i_minus_p.astype(np.int64) % 2
@@ -120,7 +120,7 @@ def test_construct_rejects_noninvertible_sigma():
 def test_find_code_params_recovers_reference_family():
     """The search recognizes both reference codes' (sigma, tau) as valid and
     the order-L/2 characterization holds."""
-    from qec_ldpc_tpu.codes import (
+    from qec_ldpc.codes import (
         build_exponent_tables, check_css_orthogonal, find_code_params,
         multiplicative_order,
     )
@@ -139,9 +139,9 @@ def test_find_code_params_builds_valid_larger_code():
     import jax
     import jax.numpy as jnp
 
-    from qec_ldpc_tpu.codes import construct_code, find_code_params
-    from qec_ldpc_tpu.decoder import BPConfig, CodeGraphs, decode_batch
-    from qec_ldpc_tpu.sampling import sample_weight_w_errors
+    from qec_ldpc.codes import construct_code, find_code_params
+    from qec_ldpc.decoder import BPConfig, CodeGraphs, decode_batch
+    from qec_ldpc.sampling import sample_weight_w_errors
 
     (sigma, tau), = find_code_params(4, 5, 10, 131, count=1)
     code = construct_code(4, 5, 10, 131, sigma, tau)
@@ -159,8 +159,8 @@ def test_find_code_params_builds_valid_larger_code():
 def test_check_css_orthogonal_matches_dense_product(rng):
     """The exponent-level multiset check agrees with the dense mod-2 product
     on random tables (both orthogonal and non-orthogonal cases)."""
-    from qec_ldpc_tpu.codes import check_css_orthogonal
-    from qec_ldpc_tpu.codes.construction import expand_circulant
+    from qec_ldpc.codes import check_css_orthogonal
+    from qec_ldpc.codes.construction import expand_circulant
 
     P = 11
     hits = 0

@@ -1,4 +1,4 @@
-"""Batched TPU decoder vs the naive NumPy oracle (reference semantics).
+"""Batched decoder vs the naive NumPy oracle (reference semantics).
 
 Checks message-trajectory agreement, hard decisions, error-code flags, and
 early-exit behavior on the small P=7 code.
@@ -9,8 +9,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from qec_ldpc_tpu.decoder import BPConfig, bp_run, decode_batch
-from qec_ldpc_tpu.sampling import sample_weight_w_errors
+from qec_ldpc.decoder import BPConfig, bp_run, decode_batch
+from qec_ldpc.sampling import sample_weight_w_errors
 
 from . import oracle
 

@@ -1,7 +1,7 @@
 """Deep-statistics count parity gate (VERDICT r3 #1).
 
 Pins the committed ``benchmarks/data/golden_deep_r4.jsonl`` artifact —
->= 1M decoded samples per corpus weight on the real TPU chip — against the
+>= 1M decoded samples per corpus weight — against the
 reference's deepest [[610,61]] golden files.  This is the unproven half of
 the north-star's "logical-error parity" clause: not fractions, COUNTS of the
 rare events (logical errors, convergence failures per ``DecoderCPU.h:

@@ -14,9 +14,9 @@ enough to never flake.
 import numpy as np
 import pytest
 
-from qec_ldpc_tpu.decoder import BPConfig
-from qec_ldpc_tpu.parallel import make_mesh, run_monte_carlo
-from qec_ldpc_tpu.sampling import (
+from qec_ldpc.decoder import BPConfig
+from qec_ldpc.parallel import make_mesh, run_monte_carlo
+from qec_ldpc.sampling import (
     C_CORRECTED, C_LOGICAL, C_SYN_X, C_SYN_Z, C_TESTED,
 )
 
@@ -71,7 +71,7 @@ COUNT_610 = 2048
 
 @pytest.fixture(scope="session")
 def graphs610(code610):
-    from qec_ldpc_tpu.decoder import CodeGraphs
+    from qec_ldpc.decoder import CodeGraphs
 
     return CodeGraphs.build(code610)
 
@@ -93,7 +93,7 @@ def test_610_outcome_fractions_match_golden_corpus(graphs610, weight):
 
 def test_full_610_weight_sweep_artifact():
     """VERDICT r2 #5: the committed full-corpus sweep artifact
-    (benchmarks/data/golden_sweep_r3.jsonl, generated on the TPU chip by
+    (benchmarks/data/golden_sweep_r3.jsonl, generated by
     benchmarks/golden_sweep.py) pins plain sum-product BP against EVERY
     [[610,61]] golden file (122 points: W=1..60, both labeled p values).
 

@@ -11,10 +11,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from qec_ldpc_tpu.decoder import BPConfig, decode_batch
-from qec_ldpc_tpu.parallel import make_mesh
-from qec_ldpc_tpu.parallel.graph_sharded import make_graph_sharded_decoder
-from qec_ldpc_tpu.sampling import sample_weight_w_errors
+from qec_ldpc.decoder import BPConfig, decode_batch
+from qec_ldpc.parallel import make_mesh
+from qec_ldpc.parallel.graph_sharded import make_graph_sharded_decoder
+from qec_ldpc.sampling import sample_weight_w_errors
 
 
 def _random_syndromes(code, graphs, rng, batch, weight=2):
@@ -157,87 +157,3 @@ def test_unknown_algorithm_rejected(small_graphs):
     with pytest.raises(ValueError, match="unknown algorithm"):
         make_graph_sharded_decoder(
             mesh, small_graphs, BPConfig(algorithm="bogus"))
-
-
-# ---- fused between-halos kernel path (kernels/sharded_step_pallas, r5) ----
-
-@pytest.mark.parametrize("num_data,num_graph", [(2, 2), (1, 3)])
-def test_min_sum_pallas_step_bit_exact(small_code, small_graphs, rng,
-                                       num_data, num_graph):
-    """The between-halos Pallas step is bit-identical to BOTH the XLA
-    sharded engine and the single-device min-sum decode (same value stream:
-    partials are a pure function of V in both schedules, min/±1-product are
-    exact under any association)."""
-    code, graphs = small_code, small_graphs
-    mesh = make_mesh(num_data=num_data, num_graph=num_graph)
-    batch = 8 * num_data
-    sx, sz = _random_syndromes(code, graphs, rng, batch)
-    outs = {}
-    for kern in ("xla", "pallas"):
-        cfg = BPConfig(max_iters=25, algorithm="min-sum", kernel=kern)
-        decode = make_graph_sharded_decoder(mesh, graphs, cfg)
-        dx, dz, codes, iters = decode(sx, sz, 0.05)
-        outs[kern] = tuple(np.asarray(a) for a in (dx, dz, codes, iters))
-    for a, b in zip(outs["xla"], outs["pallas"]):
-        assert np.array_equal(a, b)
-    ref = decode_batch(graphs, sx, sz, 0.05,
-                       BPConfig(max_iters=25, algorithm="min-sum"))
-    assert np.array_equal(outs["pallas"][0], np.asarray(ref.decisions_x))
-    assert np.array_equal(outs["pallas"][2], np.asarray(ref.error_code))
-
-
-def test_min_sum_pallas_step_early_exit(small_code, small_graphs):
-    """Early exit through the kernel path: weight-1 errors decode in few
-    iterations and fully correct on a (data x graph) mesh."""
-    code, graphs = small_code, small_graphs
-    mesh = make_mesh(num_data=4, num_graph=2)
-    decode = make_graph_sharded_decoder(
-        mesh, graphs, BPConfig(max_iters=50, algorithm="min-sum",
-                               kernel="pallas"))
-    batch = 16
-    xe, ze = sample_weight_w_errors(jax.random.PRNGKey(13), code.n, 1, batch)
-    sx = graphs.x.syndrome(xe.astype(jnp.int32))
-    sz = graphs.z.syndrome(ze.astype(jnp.int32))
-    dx, dz, codes, iters = decode(sx, sz, 0.02)
-    assert np.array_equal(np.asarray(dx), np.asarray(xe))
-    assert np.array_equal(np.asarray(dz), np.asarray(ze))
-    assert (np.asarray(codes) == 0).all()
-    assert np.asarray(iters).max() < 50
-
-
-def test_pallas_step_rejected_for_non_min_sum(small_graphs):
-    mesh = make_mesh(num_data=2, num_graph=2)
-    for algo in ("sum-product", "layered-min-sum"):
-        with pytest.raises(ValueError, match="between-halos"):
-            make_graph_sharded_decoder(
-                mesh, small_graphs,
-                BPConfig(max_iters=10, algorithm=algo, kernel="pallas"))
-
-
-def test_pallas_step_collective_structure(small_code, small_graphs):
-    """ONE all_gather per BP iteration (inside the while body), no other
-    in-loop collectives — the halo-exchange claim, now for the kernel path
-    (hlo_inspect attributes collectives to their innermost loop)."""
-    from qec_ldpc_tpu.harness.hlo_inspect import loop_collective_summary
-
-    mesh = make_mesh(num_data=2, num_graph=2)
-    cfg = BPConfig(max_iters=25, algorithm="min-sum", kernel="pallas")
-    G = mesh.shape["graph"]
-    from qec_ldpc_tpu.parallel.graph_sharded import ShardRouter  # noqa: F401
-
-    # lower (not run) the decoder's jitted shard_map
-    decode = make_graph_sharded_decoder(mesh, small_graphs, cfg)
-    sx = jnp.zeros((small_graphs.x.num_checks, 8), jnp.int32)
-    sz = jnp.zeros((small_graphs.z.num_checks, 8), jnp.int32)
-    import jax as _jax
-
-    lowered = _jax.jit(lambda a, b: decode(a, b, 0.02)).lower(sx, sz)
-    summary = loop_collective_summary(lowered.as_text())
-    bodies = [b for b in summary["bodies"]
-              if sum(b.counts.values()) > 0]
-    # two decode loops (X and Z), each with exactly one all_gather
-    per_iter = [b.counts.get("all_gather", 0) for b in bodies]
-    assert per_iter.count(1) >= 2, (per_iter, [b.counts for b in bodies])
-    for b in bodies:
-        assert b.counts.get("all_to_all", 0) == 0
-        assert b.counts.get("collective_permute", 0) == 0

@@ -1,7 +1,7 @@
 """Compiled collective structure of the sharded engines (VERDICT r3 #4).
 
 The graph-sharded design claims (``parallel/graph_sharded.py`` docstring,
-SURVEY §5 ICI design) are asserted here against the COMPILED program: lower
+SURVEY §5 interconnect design) are asserted here against the COMPILED program: lower
 each sharded decoder on the CPU test mesh, extract the BP while-loop bodies
 from the StableHLO text, and count the collectives.  If XLA or a refactor
 ever un-fuses the halo exchange (one gather becoming per-block gathers),
@@ -23,12 +23,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from qec_ldpc_tpu.codes import construct_code, known_bicycle_code
-from qec_ldpc_tpu.decoder import BPConfig, CodeGraphs
-from qec_ldpc_tpu.harness.hlo_inspect import loop_collective_summary
-from qec_ldpc_tpu.parallel import make_mesh
-from qec_ldpc_tpu.parallel.graph_sharded import make_graph_sharded_decoder
-from qec_ldpc_tpu.parallel.lifted_sharded import make_lifted_sharded_decoder
+from qec_ldpc.codes import construct_code, known_bicycle_code
+from qec_ldpc.decoder import BPConfig, CodeGraphs
+from qec_ldpc.harness.hlo_inspect import loop_collective_summary
+from qec_ldpc.parallel import make_mesh
+from qec_ldpc.parallel.graph_sharded import make_graph_sharded_decoder
+from qec_ldpc.parallel.lifted_sharded import make_lifted_sharded_decoder
 
 pytestmark = pytest.mark.skipif(len(jax.devices()) < 8,
                                 reason="needs 8 virtual devices")
@@ -46,7 +46,7 @@ def lowered():
     sz = jnp.zeros((code.num_eqs_z, BATCH), jnp.int32)
 
     def lower(algo):
-        cfg = BPConfig(max_iters=20, algorithm=algo, kernel="xla")
+        cfg = BPConfig(max_iters=20, algorithm=algo)
         dec = make_graph_sharded_decoder(mesh, graphs, cfg)
         return loop_collective_summary(
             jax.jit(dec).lower(sx, sz, 0.02).as_text())
@@ -115,7 +115,7 @@ def test_lifted_lane_sharded_offset_grouped_permutes():
     mesh = make_mesh(num_data=2, num_graph=4)
     sx = jnp.zeros((bb.num_eqs_x, BATCH), jnp.int32)
     sz = jnp.zeros((bb.num_eqs_z, BATCH), jnp.int32)
-    cfg = BPConfig(max_iters=20, algorithm="min-sum", kernel="xla")
+    cfg = BPConfig(max_iters=20, algorithm="min-sum")
     dec = make_lifted_sharded_decoder(mesh, graphs, cfg)
     s = loop_collective_summary(jax.jit(dec).lower(sx, sz, 0.02).as_text())
     assert [b.counts["collective_permute"] for b in s["bodies"]] == [2, 2]

@@ -2,23 +2,24 @@
 
 Covers: [[2d²,2,d]] toric parameters, k = 2·k1·k2 for general circulant
 factors, CSS orthogonality, graph-vs-dense syndrome parity, end-to-end
-decode + classification on the lifted stack, fused lifted Pallas kernel
-parity, OSD repair of BP failures (BP alone struggles on the degenerate
+decode + classification on the lifted stack, sum-product parity with the
+dense oracle, OSD repair of BP failures (BP alone struggles on the degenerate
 toric code), and the CLI code specs.
 """
+
+import types
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from qec_ldpc_tpu.codes import hgp_code, toric_code
-from qec_ldpc_tpu.codes.construction import gf2_rref
-from qec_ldpc_tpu.decoder import BPConfig
-from qec_ldpc_tpu.decoder.decode import decode_batch, syndromes_from_errors
-from qec_ldpc_tpu.decoder.min_sum import min_sum_run
-from qec_ldpc_tpu.sampling.classify import classify_batch
-from qec_ldpc_tpu.sampling.errors import sample_depolarizing_errors
+from qec_ldpc.codes import hgp_code, toric_code
+from qec_ldpc.codes.construction import gf2_rref
+from qec_ldpc.decoder import BPConfig
+from qec_ldpc.decoder.decode import decode_batch, syndromes_from_errors
+from qec_ldpc.sampling.classify import classify_batch
+from qec_ldpc.sampling.errors import sample_depolarizing_errors
 
 
 @pytest.fixture(scope="module")
@@ -137,25 +138,35 @@ def test_toric_decode_end_to_end(toric4, toric4_graphs):
     assert counters[3] + counters[6] <= batch
 
 
-def test_toric_pallas_kernel_bit_parity(toric4, toric4_graphs):
-    """Fused lifted min-sum kernel (interpret mode on CPU) == XLA loop."""
-    from qec_ldpc_tpu.kernels.min_sum_pallas import min_sum_run_pallas
+def test_toric_sum_product_matches_oracle(toric4, toric4_graphs):
+    """Lifted-graph sum-product on the toric code == the dense NumPy oracle
+    (decisions and error codes exactly)."""
+    from . import oracle
 
-    g = toric4_graphs.x
     rng = np.random.default_rng(5)
-    err = (rng.random((toric4.n, 16)) < 0.05).astype(np.int32)
-    syn = g.syndrome(jnp.asarray(err))
-    v1, _ = min_sum_run(g, syn, jnp.float32(0.02), 15)
-    v2, _ = min_sum_run_pallas(g, syn, jnp.float32(0.02), 15,
-                               tile_batch=16, interpret=True)
-    assert bool(jnp.all(v1 == v2))
+    batch = 4
+    xe = (rng.random((toric4.n, batch)) < 0.05).astype(np.int32)
+    ze = (rng.random((toric4.n, batch)) < 0.05).astype(np.int32)
+    sx, sz = syndromes_from_errors(toric4_graphs, jnp.asarray(xe),
+                                   jnp.asarray(ze))
+    res = decode_batch(toric4_graphs, sx, sz, 0.02, BPConfig(max_iters=15))
+    sx, sz = np.asarray(sx), np.asarray(sz)
+    hx, hz = toric4.pcm_x % 2, toric4.pcm_z % 2
+    dense = types.SimpleNamespace(pcm_x=hx, pcm_z=hz,
+                                  syndrome_x=lambda e: hx @ e,
+                                  syndrome_z=lambda e: hz @ e)
+    for b in range(batch):
+        dx, dz, rc = oracle.decode(dense, sx[:, b], sz[:, b], 0.02, 15)
+        assert np.array_equal(np.asarray(res.decisions_x)[:, b], dx)
+        assert np.array_equal(np.asarray(res.decisions_z)[:, b], dz)
+        assert int(np.asarray(res.error_code)[b]) == rc
 
 
 def test_toric_osd_repairs_bp_failures(toric4, toric4_graphs):
     """BP alone fails often on the degenerate toric code (split beliefs on
     symmetric error cosets); OSD clears every syndrome failure."""
-    from qec_ldpc_tpu.decoder.osd import CSSPostprocessor
-    from qec_ldpc_tpu.sampling.classify import classify_batch_np
+    from qec_ldpc.decoder.osd import CSSPostprocessor
+    from qec_ldpc.sampling.classify import classify_batch_np
 
     batch = 64
     key = jax.random.PRNGKey(7)
@@ -181,7 +192,7 @@ def test_toric_osd_repairs_bp_failures(toric4, toric4_graphs):
 # -- harness integration -------------------------------------------------------
 
 def test_cli_code_specs():
-    from qec_ldpc_tpu.harness.cli import load_code_and_graphs
+    from qec_ldpc.harness.cli import load_code_and_graphs
 
     code, graphs = load_code_and_graphs("toric:3")
     assert code.n == 18 and code.k_logical == 2

@@ -10,8 +10,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from qec_ldpc_tpu.decoder import BPConfig, decode_batch, min_sum_run
-from qec_ldpc_tpu.sampling import sample_weight_w_errors
+from qec_ldpc.decoder import BPConfig, decode_batch, min_sum_run
+from qec_ldpc.sampling import sample_weight_w_errors
 
 MS_CFG = BPConfig(max_iters=50, algorithm="min-sum")
 
@@ -89,7 +89,7 @@ def test_llr_signs_are_probability_images(small_code, small_graphs):
     err = np.zeros((n, 1), dtype=np.int64)
     err[5, 0] = 1
     syn = jnp.asarray(code.syndrome_x(err.T).T)
-    from qec_ldpc_tpu.decoder import bp_run
+    from qec_ldpc.decoder import bp_run
 
     prior = jnp.float32(2 / 3 * 0.02)
     v_sp, _ = bp_run(graphs.x, syn, prior, max_iters=30)

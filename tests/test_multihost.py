@@ -2,8 +2,8 @@
 runnable on CPU; §5 distributed backend).
 
 Two OS processes, 4 virtual CPU devices each, form an 8-device global mesh
-through a loopback coordinator — the same code path a real multi-host TPU
-slice uses (jax.distributed + process-spanning Mesh + psum over DCN).  The
+through a loopback coordinator — the same code path a real multi-host
+cluster uses (jax.distributed + process-spanning Mesh + psum across hosts).  The
 psum-reduced counters must agree across processes AND bit-match a
 single-process 8-device run, because per-sample PRNG keys derive from the
 global device index (partition-independent reproducibility — the design that
@@ -57,8 +57,8 @@ def test_two_process_loopback_matches_single_process(small_code, small_graphs):
     assert counters[0] == counters[1], "processes disagree on psum counters"
 
     # single-process 8-device reference run: identical statistics
-    from qec_ldpc_tpu.decoder import BPConfig
-    from qec_ldpc_tpu.parallel import make_mesh, make_sharded_chunk
+    from qec_ldpc.decoder import BPConfig
+    from qec_ldpc.parallel import make_mesh, make_sharded_chunk
 
     mesh = make_mesh(num_data=8)
     chunk_fn = make_sharded_chunk(mesh, small_graphs, weight=2,
@@ -66,7 +66,7 @@ def test_two_process_loopback_matches_single_process(small_code, small_graphs):
                                   batch_per_device=16)
     ref, _ = chunk_fn(jnp.asarray(small_code.i_minus_p),
                       jax.random.PRNGKey(7), jnp.float32(0.02),
-                      jnp.arange(2, dtype=jnp.uint32), None)
+                      jnp.arange(2, dtype=jnp.uint32))
     assert counters[0] == np.asarray(ref).tolist()
 
 
@@ -110,7 +110,7 @@ def test_two_process_cli_single_writer(tmp_path):
     results = [f for f in os.listdir(results_dir)
                if f.endswith(".txt") and "_W_2_" in f]
     assert len(results) == 1
-    from qec_ldpc_tpu.harness import parse_reference_text
+    from qec_ldpc.harness import parse_reference_text
 
     records = parse_reference_text(
         open(os.path.join(results_dir, results[0])).read())
@@ -130,7 +130,7 @@ def test_two_process_cli_single_writer(tmp_path):
 def test_two_process_graph_sharded_statistics(small_code):
     """Graph-parallel Monte-Carlo statistics with the graph axis SPLIT
     ACROSS processes: every CN-halo all_gather crosses the jax.distributed
-    boundary (the DCN path).  Counters must bit-match a single-process
+    boundary (the cross-host path).  Counters must bit-match a single-process
     (data=4, graph=2) mesh — min-sum cross-shard reductions are exact and
     sample keys depend only on the data index."""
     port = _free_port()
@@ -162,9 +162,9 @@ def test_two_process_graph_sharded_statistics(small_code):
     # single-process reference with the same mesh shape
     import jax.numpy as jnp
 
-    from qec_ldpc_tpu.decoder import BPConfig, CodeGraphs
-    from qec_ldpc_tpu.parallel import make_graph_sharded_chunk, make_mesh
-    from qec_ldpc_tpu.sampling.classify import make_rank_basis_test
+    from qec_ldpc.decoder import BPConfig, CodeGraphs
+    from qec_ldpc.parallel import make_graph_sharded_chunk, make_mesh
+    from qec_ldpc.sampling.classify import make_rank_basis_test
 
     graphs = CodeGraphs.build(small_code)
     mesh = make_mesh(num_data=4, num_graph=2)
@@ -208,10 +208,10 @@ def test_two_process_osd_quality_mode(small_graphs):
         counters.append([int(x) for x in line.split()[1].split(",")])
     assert counters[0] == counters[1], "processes disagree on OSD counters"
 
-    from qec_ldpc_tpu.decoder import BPConfig
-    from qec_ldpc_tpu.parallel.montecarlo import run_monte_carlo_osd
+    from qec_ldpc.decoder import BPConfig
+    from qec_ldpc.parallel.montecarlo import run_monte_carlo_osd
 
-    cfg = BPConfig(max_iters=15, algorithm="min-sum", kernel="xla")
+    cfg = BPConfig(max_iters=15, algorithm="min-sum")
     ref, _ = run_monte_carlo_osd(small_graphs, 4, 128, 0.02, cfg, seed=7,
                                  batch_size=64, lam=1, relay_retries=1)
     assert counters[0] == np.asarray(ref).tolist()
@@ -301,8 +301,8 @@ def test_elastic_recovery_kill_mid_sweep(tmp_path):
     assert sorted(chunks) == list(range(8)), chunks
 
     # ---- uninterrupted reference: same config, fresh dir, in-process ----
-    from qec_ldpc_tpu.harness.cli import run_sweep
-    from qec_ldpc_tpu.harness.config import RunConfig
+    from qec_ldpc.harness.cli import run_sweep
+    from qec_ldpc.harness.config import RunConfig
 
     ref_dir = str(tmp_path / "ref_results")
     ref = run_sweep(RunConfig(

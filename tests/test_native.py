@@ -1,10 +1,10 @@
-"""Native C++ GF(2) kernels (qec_ldpc_tpu/native) vs the NumPy references."""
+"""Native C++ GF(2) kernels (qec_ldpc/native) vs the NumPy references."""
 
 import numpy as np
 import pytest
 
-from qec_ldpc_tpu import native
-from qec_ldpc_tpu.codes import construction
+from qec_ldpc import native
+from qec_ldpc.codes import construction
 
 
 @pytest.fixture(scope="module")

@@ -11,19 +11,19 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import qec_ldpc_tpu as q
-from qec_ldpc_tpu import native
-from qec_ldpc_tpu.decoder import BPConfig, CSSPostprocessor, OSDecoder
-from qec_ldpc_tpu.decoder.decode import (
+import qec_ldpc as q
+from qec_ldpc import native
+from qec_ldpc.decoder import BPConfig, CSSPostprocessor, OSDecoder
+from qec_ldpc.decoder.decode import (
     SYNDROME_FAIL_X,
     SYNDROME_FAIL_Z,
     CodeGraphs,
     decode_batch,
 )
-from qec_ldpc_tpu.decoder.osd import _osd_one_np
-from qec_ldpc_tpu.parallel.montecarlo import run_monte_carlo, run_monte_carlo_osd
-from qec_ldpc_tpu.sampling import sample_weight_w_errors
-from qec_ldpc_tpu.sampling.classify import (
+from qec_ldpc.decoder.osd import _osd_one_np
+from qec_ldpc.parallel.montecarlo import run_monte_carlo, run_monte_carlo_osd
+from qec_ldpc.sampling import sample_weight_w_errors
+from qec_ldpc.sampling.classify import (
     C_CORRECTED,
     C_CONV_X,
     C_CONV_Z,
@@ -126,7 +126,7 @@ def test_return_soft_shapes_and_ranking(small_graphs, algorithm):
     xe, ze = sample_weight_w_errors(jax.random.PRNGKey(2), n, 3, batch)
     sx = graphs.x.syndrome(xe.astype(jnp.int32))
     sz = graphs.z.syndrome(ze.astype(jnp.int32))
-    cfg = BPConfig(max_iters=20, algorithm=algorithm, kernel="xla",
+    cfg = BPConfig(max_iters=20, algorithm=algorithm,
                    return_soft=True)
     res = decode_batch(graphs, sx, sz, 0.02, cfg)
     assert res.soft_x.shape == (n, batch)
@@ -137,8 +137,7 @@ def test_return_soft_shapes_and_ranking(small_graphs, algorithm):
                               np.asarray(res.soft_x <= 0.0).astype(np.int8))
     # soft defaults to None when not requested
     res2 = decode_batch(graphs, sx, sz, 0.02,
-                        BPConfig(max_iters=20, algorithm=algorithm,
-                                 kernel="xla"))
+                        BPConfig(max_iters=20, algorithm=algorithm))
     assert res2.soft_x is None and res2.soft_z is None
 
 
@@ -149,7 +148,7 @@ def test_css_postprocessor_resolves_failures(small_graphs):
     xe, ze = sample_weight_w_errors(jax.random.PRNGKey(4), n, 5, batch)
     sx = graphs.x.syndrome(xe.astype(jnp.int32))
     sz = graphs.z.syndrome(ze.astype(jnp.int32))
-    cfg = BPConfig(max_iters=15, kernel="xla", return_soft=True)
+    cfg = BPConfig(max_iters=15, return_soft=True)
     res = decode_batch(graphs, sx, sz, 0.02, cfg)
     ec0 = np.asarray(res.error_code)
     failed_x = (ec0 & SYNDROME_FAIL_X) != 0
@@ -176,7 +175,7 @@ def test_css_postprocessor_resolves_failures(small_graphs):
 @pytest.mark.parametrize("algorithm", ["sum-product", "layered-min-sum"])
 def test_run_monte_carlo_osd_improves_on_base(small_graphs, algorithm):
     graphs = small_graphs
-    cfg = BPConfig(max_iters=20, kernel="xla", algorithm=algorithm)
+    cfg = BPConfig(max_iters=20, algorithm=algorithm)
     base, _ = run_monte_carlo(graphs, 4, 512, 0.02, cfg, seed=7,
                               batch_size=128)
     osd, _ = run_monte_carlo_osd(graphs, 4, 512, 0.02, cfg, seed=7,
@@ -198,7 +197,7 @@ def test_run_monte_carlo_osd_mesh_bitmatch(small_graphs):
     its columns of the full-batch draw, and relay gammas slice the
     full-batch uniform), so mesh and single-device counters are
     BIT-IDENTICAL."""
-    from qec_ldpc_tpu.parallel import make_mesh
+    from qec_ldpc.parallel import make_mesh
 
     cfg = BPConfig(max_iters=15, algorithm="min-sum")
     kw = dict(batch_size=64, lam=1, relay_retries=1)
@@ -228,15 +227,13 @@ def test_run_monte_carlo_osd_resume(small_graphs):
     np.testing.assert_array_equal(full, resumed)
 
 
-def test_run_monte_carlo_osd_mesh_pallas(small_graphs):
-    """Advisor r3 (medium): the quality mode's device chunk is a shard_map,
-    so the fused Pallas kernels compose with a data mesh (GSPMD could not
-    auto-partition a pallas_call).  Interpret-mode kernels on the CPU mesh;
-    counters must satisfy the OSD invariants."""
-    from qec_ldpc_tpu.parallel import make_mesh
+def test_run_monte_carlo_osd_data_mesh_invariants(small_graphs):
+    """The quality mode's shard_map device chunk on an 8-way data mesh:
+    counters satisfy the OSD invariants (no syndrome failure survives
+    OSD-0; every tested lane is corrected or a logical error)."""
+    from qec_ldpc.parallel import make_mesh
 
-    cfg = BPConfig(max_iters=10, algorithm="min-sum", kernel="pallas",
-                   kernel_tile_batch=8)
+    cfg = BPConfig(max_iters=10, algorithm="min-sum")
     osd, _ = run_monte_carlo_osd(small_graphs, 4, 64, 0.02, cfg, seed=5,
                                  batch_size=64, lam=0,
                                  mesh=make_mesh(num_data=8))
@@ -250,20 +247,20 @@ def test_gather_failed_lanes_prefix_only(small_graphs):
     device chunk's nfail + compacted bundle agree with a full classification
     of the same chunk (counters_ok + failed-lane classification == the
     classify-everything counters)."""
-    from qec_ldpc_tpu.parallel.montecarlo import (
+    from qec_ldpc.parallel.montecarlo import (
         _gather_failed_lanes,
         _repair_and_classify_np,
         make_osd_chunk,
     )
-    from qec_ldpc_tpu.sampling.classify import make_rank_basis_test
+    from qec_ldpc.sampling.classify import make_rank_basis_test
 
     graphs = small_graphs
-    cfg = BPConfig(max_iters=10, algorithm="min-sum", kernel="xla",
+    cfg = BPConfig(max_iters=10, algorithm="min-sum",
                    return_soft=True)
     lt = make_rank_basis_test(graphs.code)
     chunk = make_osd_chunk(graphs, 5, cfg, 128)
     counters_ok, iters, nfail, bundle = chunk(
-        lt, jax.random.PRNGKey(3), jnp.float32(0.02), None)
+        lt, jax.random.PRNGKey(3), jnp.float32(0.02))
     k = int(np.asarray(nfail)[0])
     assert k > 0, "fixture produced no failures; raise the weight"
     failed = _gather_failed_lanes(nfail, bundle)
@@ -271,8 +268,8 @@ def test_gather_failed_lanes_prefix_only(small_graphs):
     assert ((failed[-1] & (SYNDROME_FAIL_X | SYNDROME_FAIL_Z)) != 0).all()
     # counters_ok + classify(failed, no repair) == classify everything
     cnt_failed = _repair_and_classify_np(None, lt, failed)
-    from qec_ldpc_tpu.parallel.montecarlo import _sample_and_decode
-    from qec_ldpc_tpu.sampling.classify import classify_batch
+    from qec_ldpc.parallel.montecarlo import _sample_and_decode
+    from qec_ldpc.sampling.classify import classify_batch
 
     xe_i, ze_i, sx, sz, res = _sample_and_decode(
         graphs, jax.random.PRNGKey(3), 5, jnp.float32(0.02), cfg, 128,
@@ -290,7 +287,7 @@ def test_run_monte_carlo_osd_graph_mesh_bitmatch(small_graphs):
     (data x graph) mesh chunk samples from the same single key and the
     exact min-sum engine's decisions AND soft outputs bit-match the
     single-device path, so OSD counters are BIT-IDENTICAL."""
-    from qec_ldpc_tpu.parallel import make_mesh
+    from qec_ldpc.parallel import make_mesh
 
     cfg = BPConfig(max_iters=15, algorithm="min-sum")
     kw = dict(batch_size=64, lam=1)
@@ -306,7 +303,7 @@ def test_run_monte_carlo_osd_graph_mesh_bitmatch(small_graphs):
 def test_run_monte_carlo_osd_graph_mesh_with_relay(small_graphs):
     """Relay + OSD both graph-sharded: deterministic, fully repaired
     syndromes (OSD guarantees), tested count intact."""
-    from qec_ldpc_tpu.parallel import make_mesh
+    from qec_ldpc.parallel import make_mesh
 
     cfg = BPConfig(max_iters=15, algorithm="min-sum")
     mesh = make_mesh(num_data=4, num_graph=2)
@@ -318,75 +315,59 @@ def test_run_monte_carlo_osd_graph_mesh_with_relay(small_graphs):
     assert a[4] == 0 and a[5] == 0  # OSD leaves no syndrome failures
 
 
-# ---- device OSD-0 (decoder/osd_device.py, r5) ----
+# ---- OSD-0 on the QC codes ----
 
-def test_device_osd0_bitequal_host():
-    """The batched device GF(2) elimination matches the host solvers bit for
-    bit: same greedy pivot set (order-determined), unique OSD-0 solution —
-    corrections AND solved flags, decodable and undecodable syndromes."""
+def test_osd0_native_matches_numpy_on_qc_codes():
+    """The native batched OSD-0 solver matches the NumPy reference bit for
+    bit on the real QC parity-check matrices — corrections AND solved
+    flags, decodable and undecodable syndromes."""
+    if not native.native_available():
+        pytest.skip("native library unavailable")
     rng = np.random.default_rng(7)
-    for params in ((3, 3, 6, 7, 2, 3), (4, 5, 10, 61, 9, 49)):
+    for params, lanes in (((3, 3, 6, 7, 2, 3), 21), ((4, 5, 10, 61, 9, 49), 3)):
         code = q.construct_code(*params)
-        for h in (code.pcm_x, code.pcm_z):
+        for h in (code.pcm_x % 2, code.pcm_z % 2):
             m, n = h.shape
-            B = 21
-            e_true = (rng.random((n, B)) < 0.08).astype(np.int32)
+            e_true = (rng.random((n, lanes)) < 0.08).astype(np.int32)
             syn = (np.asarray(h, int) @ e_true) % 2
-            # a few pure-random (mostly undecodable) syndromes too
-            syn[:, -4:] = rng.integers(0, 2, (m, 4))
-            rel = rng.standard_normal((n, B)).astype(np.float32)
-            eh, okh = OSDecoder(h, lam=0, device="host").decode(syn, rel)
-            ed, okd = OSDecoder(h, lam=0, device="device").decode(syn, rel)
-            assert np.array_equal(eh, ed)
-            assert np.array_equal(okh, okd)
-            sat = (np.asarray(h, int) @ ed.astype(int)) % 2 == syn
-            assert np.all(sat[:, okd])
+            syn[:, -1] = rng.integers(0, 2, m)  # mostly undecodable
+            rel = rng.standard_normal((n, lanes)).astype(np.float32)
+            e, ok = OSDecoder(h, lam=0).decode(syn, rel)
+            order = np.argsort(rel, axis=0, kind="stable").T
+            cols_bits = np.ascontiguousarray(np.asarray(h, np.uint8).T)
+            for b in range(lanes):
+                e_np, ok_np = _osd_one_np(cols_bits, syn[:, b], order[b], 0)
+                assert bool(ok[b]) == ok_np
+                assert np.array_equal(e[:, b], e_np)
+            sat = (np.asarray(h, int) @ e.astype(int)) % 2 == syn
+            assert np.all(sat[:, ok])
 
 
-def test_device_osd0_slice_padding():
-    """Slicing/padding to power-of-two buckets is invisible in the results
-    (padded lanes carry zero syndromes and are dropped)."""
-    from qec_ldpc_tpu.decoder import osd_device
-
-    code = q.construct_code(3, 3, 6, 7, 2, 3)
-    h = code.pcm_x
-    rng = np.random.default_rng(3)
-    n = h.shape[1]
-    B = 19  # not a power of two; also exercises the < _SLICE bucket
-    e_true = (rng.random((n, B)) < 0.1).astype(np.int32)
-    syn = (np.asarray(h, int) @ e_true) % 2
-    rel = rng.standard_normal((n, B)).astype(np.float32)
-    dec = OSDecoder(h, lam=0, device="device")
-    e1, ok1 = dec.decode(syn, rel)
-    # force tiny slices: every bucket boundary exercised
-    saved = osd_device._SLICE, osd_device._SLICE_SMALL
-    try:
-        osd_device._SLICE = 8
-        osd_device._SLICE_SMALL = 4
-        dec2 = OSDecoder(h, lam=0, device="device")
-        e2, ok2 = dec2.decode(syn, rel)
-    finally:
-        osd_device._SLICE, osd_device._SLICE_SMALL = saved
-    assert np.array_equal(e1, e2) and np.array_equal(ok1, ok2)
-
-
-def test_quality_mode_device_osd_matches_host(small_graphs):
-    """run_monte_carlo_osd counters are identical whichever backend solves
-    OSD-0 (the postprocessor's device='auto' resolves to host on the CPU
-    test backend, so compare forced-device vs forced-host explicitly)."""
-    from qec_ldpc_tpu.decoder.osd import CSSPostprocessor as CP
+def test_quality_mode_matches_offline_postprocess(small_graphs):
+    """run_monte_carlo_osd's fast path (device classify of clean lanes,
+    compacted failed-lane fetch, host OSD-0) gives exactly the counters of
+    the plain composition: decode every chunk, OSD-repair the whole batch
+    on the host, classify everything."""
+    from qec_ldpc.parallel.montecarlo import (
+        _repair_and_classify_np,
+        _sample_and_decode,
+    )
+    from qec_ldpc.sampling.classify import make_rank_basis_test
 
     graphs = small_graphs
     cfg = BPConfig(max_iters=30, algorithm="min-sum", return_soft=True)
-    res_counters = {}
-    for device in ("host", "device"):
-        import unittest.mock as mock
-
-        with mock.patch("qec_ldpc_tpu.decoder.osd.CSSPostprocessor",
-                        lambda graphs, lam=0: CP(graphs, lam=lam,
-                                                 device=device)):
-            counters, _ = run_monte_carlo_osd(
-                graphs, 4, 512, 0.02, cfg, seed=9, batch_size=256, lam=0)
-        res_counters[device] = counters
-    assert np.array_equal(res_counters["host"], res_counters["device"])
-    assert res_counters["host"][4] == 0 and res_counters["host"][5] == 0
+    counters, _ = run_monte_carlo_osd(graphs, 4, 512, 0.02, cfg, seed=9,
+                                      batch_size=256, lam=0)
+    lt = make_rank_basis_test(graphs.code)
+    post = CSSPostprocessor(graphs, lam=0)
+    want = np.zeros_like(counters)
+    for c in range(2):
+        ck = jax.random.fold_in(jax.random.PRNGKey(9), np.uint32(c))
+        xe, ze, sx, sz, res = _sample_and_decode(
+            graphs, ck, 4, jnp.float32(0.02), cfg, 256, "weight")
+        bundle = tuple(np.asarray(a) for a in (
+            xe, ze, sx, sz, res.decisions_x, res.decisions_z, res.soft_x,
+            res.soft_z, res.error_code))
+        want += _repair_and_classify_np(post, lt, bundle)
+    np.testing.assert_array_equal(counters, want)
+    assert counters[C_SYN_X] == 0 and counters[C_SYN_Z] == 0

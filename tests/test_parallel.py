@@ -5,9 +5,9 @@ import jax
 import numpy as np
 import pytest
 
-from qec_ldpc_tpu.decoder import BPConfig
-from qec_ldpc_tpu.parallel import DATA_AXIS, make_mesh, run_monte_carlo
-from qec_ldpc_tpu.sampling import C_CORRECTED, C_TESTED, NUM_COUNTERS
+from qec_ldpc.decoder import BPConfig
+from qec_ldpc.parallel import DATA_AXIS, make_mesh, run_monte_carlo
+from qec_ldpc.sampling import C_CORRECTED, C_TESTED, NUM_COUNTERS
 
 
 def test_eight_virtual_devices():
@@ -103,8 +103,8 @@ def test_logical_test_override(small_graphs):
     convention counts genuine stabilizers as logical)."""
     import numpy as np
 
-    from qec_ldpc_tpu.decoder import BPConfig
-    from qec_ldpc_tpu.parallel.montecarlo import run_monte_carlo
+    from qec_ldpc.decoder import BPConfig
+    from qec_ldpc.parallel.montecarlo import run_monte_carlo
 
     cfg = BPConfig(max_iters=30)
     kw = dict(weight=4, count=256, error_probability=0.02, cfg=cfg, seed=9,
@@ -126,7 +126,7 @@ def test_dynamic_weight_sampler():
     import jax
     import jax.numpy as jnp
 
-    from qec_ldpc_tpu.sampling import (
+    from qec_ldpc.sampling import (
         sample_weight_w_errors,
         sample_weight_w_errors_dynamic,
     )
@@ -157,10 +157,10 @@ def test_dynamic_weight_matches_static_at_cap(small_graphs):
     bit-identical to the static sampler, so the counters must match
     exactly; below the cap the stream differs but statistics must be
     sane."""
-    from qec_ldpc_tpu.decoder import BPConfig
-    from qec_ldpc_tpu.parallel import run_monte_carlo
+    from qec_ldpc.decoder import BPConfig
+    from qec_ldpc.parallel import run_monte_carlo
 
-    cfg = BPConfig(max_iters=15, algorithm="min-sum", kernel="xla")
+    cfg = BPConfig(max_iters=15, algorithm="min-sum")
     static, it_s = run_monte_carlo(small_graphs, 8, 256, 0.02, cfg, seed=5,
                                    batch_size=128)
     dynamic, it_d = run_monte_carlo(small_graphs, 8, 256, 0.02, cfg, seed=5,
@@ -175,11 +175,11 @@ def test_dynamic_weight_matches_static_at_cap(small_graphs):
 
 
 def test_dynamic_weight_sharded_matches_static_at_cap(small_graphs):
-    from qec_ldpc_tpu.decoder import BPConfig
-    from qec_ldpc_tpu.parallel import make_mesh, run_monte_carlo
+    from qec_ldpc.decoder import BPConfig
+    from qec_ldpc.parallel import make_mesh, run_monte_carlo
 
     mesh = make_mesh(num_data=8)
-    cfg = BPConfig(max_iters=15, algorithm="min-sum", kernel="xla")
+    cfg = BPConfig(max_iters=15, algorithm="min-sum")
     static, _ = run_monte_carlo(small_graphs, 8, 256, 0.02, cfg, seed=5,
                                 batch_size=128, mesh=mesh)
     dynamic, _ = run_monte_carlo(small_graphs, 8, 256, 0.02, cfg, seed=5,
@@ -188,13 +188,13 @@ def test_dynamic_weight_sharded_matches_static_at_cap(small_graphs):
 
 
 def test_mxu_sampler_path_bit_identical():
-    """The MXU radix count-matmul sampling path (large W*n*batch) produces
+    """The radix count-matmul sampling path (large W*n*batch) produces
     BIT-identical error vectors to the direct compare — exact 0/1 bf16
     products accumulated in f32, same jax.random stream (r5; the direct
     form was 4x the decode cost at the n=42010 probe codes)."""
     import jax.numpy as jnp
 
-    from qec_ldpc_tpu.sampling import errors as E
+    from qec_ldpc.sampling import errors as E
 
     key = jax.random.PRNGKey(3)
     cases = [(610, 58, 64), (1000, 300, 32), (4201, 103, 8)]
@@ -206,7 +206,7 @@ def test_mxu_sampler_path_bit_identical():
             E.sample_weight_w_errors.clear_cache()
             xe2, ze2 = map(np.asarray, E.sample_weight_w_errors(key, n, w, b))
             assert np.array_equal(xe1, xe2) and np.array_equal(ze1, ze2), (n, w)
-            # dynamic sampler through the MXU path honours the active mask
+            # dynamic sampler through the count-matmul path honours the active mask
             E.sample_weight_w_errors_dynamic.clear_cache()
             xd, zd = map(np.asarray, E.sample_weight_w_errors_dynamic(
                 key, n, jnp.int32(w), w, b))

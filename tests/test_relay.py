@@ -5,17 +5,17 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import qec_ldpc_tpu as q
-from qec_ldpc_tpu.decoder import BPConfig
-from qec_ldpc_tpu.decoder.decode import (
+import qec_ldpc as q
+from qec_ldpc.decoder import BPConfig
+from qec_ldpc.decoder.decode import (
     SYNDROME_FAIL_X,
     SYNDROME_FAIL_Z,
     CodeGraphs,
     decode_batch,
 )
-from qec_ldpc_tpu.decoder.min_sum import min_sum_run
-from qec_ldpc_tpu.decoder.relay import relay_decode_batch
-from qec_ldpc_tpu.sampling import sample_weight_w_errors
+from qec_ldpc.decoder.min_sum import min_sum_run
+from qec_ldpc.decoder.relay import relay_decode_batch
+from qec_ldpc.sampling import sample_weight_w_errors
 
 
 @pytest.fixture(scope="module")
@@ -56,7 +56,7 @@ def test_expand_vars_roundtrip(graphs):
 
 def test_relay_repairs_failures(graphs, hard_syndromes):
     sx, sz = hard_syndromes
-    cfg = BPConfig(max_iters=20, kernel="xla", algorithm="min-sum")
+    cfg = BPConfig(max_iters=20, algorithm="min-sum")
     base = decode_batch(graphs, sx, sz, 0.02, cfg)
     ec0 = np.asarray(base.error_code)
     failed0 = np.count_nonzero(ec0 & (SYNDROME_FAIL_X | SYNDROME_FAIL_Z))
@@ -87,18 +87,18 @@ def test_run_monte_carlo_relay_modes(graphs):
     """Quality-driver composition: relay-only (lam=-1), OSD-only, and
     relay+OSD all share sample keys with the base run and never lose
     corrected lanes."""
-    from qec_ldpc_tpu.parallel.montecarlo import (
+    from qec_ldpc.parallel.montecarlo import (
         run_monte_carlo,
         run_monte_carlo_osd,
     )
-    from qec_ldpc_tpu.sampling.classify import (
+    from qec_ldpc.sampling.classify import (
         C_CORRECTED,
         C_SYN_X,
         C_SYN_Z,
         C_TESTED,
     )
 
-    cfg = BPConfig(max_iters=20, kernel="xla", algorithm="min-sum")
+    cfg = BPConfig(max_iters=20, algorithm="min-sum")
     kw = dict(seed=7, batch_size=128)
     base, _ = run_monte_carlo(graphs, 4, 256, 0.02, cfg, **kw)
     relay_only, _ = run_monte_carlo_osd(graphs, 4, 256, 0.02, cfg, lam=-1,
@@ -115,13 +115,12 @@ def test_run_monte_carlo_relay_modes(graphs):
     assert both[C_CORRECTED] >= relay_only[C_CORRECTED]
 
 
-def test_relay_pallas_engine(graphs, hard_syndromes):
-    """cfg.kernel='pallas' routes relay retries through the fused damped
-    kernel (interpret mode on CPU): repairs reduce failures, every repair
-    satisfies its syndrome, and per-tile iteration accounting accumulates."""
+def test_relay_fail_flags_are_exact_reencode(graphs, hard_syndromes):
+    """Relay repairs halve the failures, the SYNDROME_FAIL flags stay exact
+    re-encode statements after the splice, and the retries' iterations
+    accumulate into the honest work counters."""
     sx, sz = hard_syndromes
-    cfg = BPConfig(max_iters=20, kernel="pallas", algorithm="min-sum",
-                   kernel_tile_batch=8)
+    cfg = BPConfig(max_iters=20, algorithm="min-sum")
     base = decode_batch(graphs, sx, sz, 0.02, cfg)
     ec0 = np.asarray(base.error_code)
     failed0 = np.count_nonzero(ec0 & (SYNDROME_FAIL_X | SYNDROME_FAIL_Z))
@@ -147,7 +146,7 @@ def test_relay_counts_retry_iterations(graphs, hard_syndromes):
     iter_samples_x/z (regression: relay used to report only the primary
     decode's work)."""
     sx, sz = hard_syndromes
-    cfg = BPConfig(max_iters=20, kernel="xla", algorithm="min-sum")
+    cfg = BPConfig(max_iters=20, algorithm="min-sum")
     base = decode_batch(graphs, sx, sz, 0.02, cfg)
     res, rx, _ = relay_decode_batch(graphs, sx, sz, 0.02,
                                     jax.random.PRNGKey(7), cfg, retries=4)
@@ -159,11 +158,11 @@ def test_relay_sharded_mesh(graphs):
     """Relay inside the shard_map chunk: pure-device, so it composes with
     the data-parallel mesh (psum counters) — failures drop vs the base
     sharded run with identical sample keys."""
-    from qec_ldpc_tpu.parallel import make_mesh, run_monte_carlo
-    from qec_ldpc_tpu.sampling.classify import C_SYN_X, C_SYN_Z, C_TESTED
+    from qec_ldpc.parallel import make_mesh, run_monte_carlo
+    from qec_ldpc.sampling.classify import C_SYN_X, C_SYN_Z, C_TESTED
 
     mesh = make_mesh()
-    cfg = BPConfig(max_iters=20, kernel="xla", algorithm="min-sum")
+    cfg = BPConfig(max_iters=20, algorithm="min-sum")
     kw = dict(seed=7, batch_size=64, mesh=mesh)
     base, _ = run_monte_carlo(graphs, 4, 256, 0.02, cfg, **kw)
     relay, _ = run_monte_carlo(graphs, 4, 256, 0.02, cfg, relay_retries=8,
@@ -177,7 +176,7 @@ def test_relay_noop_on_clean_batch(graphs):
     xe, ze = sample_weight_w_errors(jax.random.PRNGKey(0), n, 1, 32)
     sx = graphs.x.syndrome(xe.astype(jnp.int32))
     sz = graphs.z.syndrome(ze.astype(jnp.int32))
-    cfg = BPConfig(max_iters=20, kernel="xla", algorithm="min-sum")
+    cfg = BPConfig(max_iters=20, algorithm="min-sum")
     base = decode_batch(graphs, sx, sz, 0.02, cfg)
     res, rx, rz = relay_decode_batch(graphs, sx, sz, 0.02,
                                      jax.random.PRNGKey(1), cfg, retries=8)

@@ -1,5 +1,5 @@
 """Sanitizer layer (decoder/validate.py): checkify float checks + structural
-result validation — the TPU-native slot for the reference's (absent) race/
+result validation — this framework's slot for the reference's (absent) race/
 numerics tooling (SURVEY §5)."""
 
 import numpy as np
@@ -7,14 +7,14 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import qec_ldpc_tpu as q
-from qec_ldpc_tpu.decoder import BPConfig
-from qec_ldpc_tpu.decoder.decode import CodeGraphs, decode_batch
-from qec_ldpc_tpu.decoder.validate import (
+import qec_ldpc as q
+from qec_ldpc.decoder import BPConfig
+from qec_ldpc.decoder.decode import CodeGraphs, decode_batch
+from qec_ldpc.decoder.validate import (
     checked_decode_batch,
     validate_decode_result,
 )
-from qec_ldpc_tpu.sampling import sample_weight_w_errors
+from qec_ldpc.sampling import sample_weight_w_errors
 
 
 @pytest.fixture(scope="module")
@@ -48,7 +48,7 @@ def test_saturation_signature_on_long_runs(graphs, syndromes):
     err, _ = checked_decode_batch(graphs, sx, sz, 0.02, cfg)
     assert err.get() is not None and "division" in err.get()
     res = decode_batch(graphs, sx, sz, 0.02,
-                       BPConfig(max_iters=20, kernel="xla", return_soft=True))
+                       BPConfig(max_iters=20, return_soft=True))
     assert validate_decode_result(graphs, sx, sz, res) == []
 
 
@@ -66,7 +66,7 @@ def test_degenerate_prior_is_caught_before_saturation(graphs, syndromes):
 def test_validate_decode_result_clean(graphs, syndromes):
     sx, sz = syndromes
     res = decode_batch(graphs, sx, sz, 0.02,
-                       BPConfig(max_iters=20, kernel="xla", return_soft=True))
+                       BPConfig(max_iters=20, return_soft=True))
     assert validate_decode_result(graphs, sx, sz, res) == []
 
 
@@ -75,7 +75,7 @@ def test_validate_decode_result_detects_tampering(graphs, syndromes):
 
     sx, sz = syndromes
     res = decode_batch(graphs, sx, sz, 0.02,
-                       BPConfig(max_iters=20, kernel="xla", return_soft=True))
+                       BPConfig(max_iters=20, return_soft=True))
     # flip one decision bit: the re-encoded syndrome no longer matches the
     # SYNDROME_FAIL flag for that lane
     dx = np.asarray(res.decisions_x).copy()
